@@ -1,13 +1,13 @@
-"""Headline benchmark: Mpix·spp/s (and rays/s) at 1024×1024 on one chip.
+"""Headline benchmark: Mpix·spp/s (and rays/s) at 1024×1024 on one card.
 
 Runs the flagship progressive path trace (sphere-on-floor scene — the gen-3
 hardcoded scene of `RayMarch3.glsl:132-143` — at the reference's default
 workload: 1024×1024, maxSteps=512, maxBounces=16, `GUI.cpp:201-208` /
-`Graphics.cpp:326-329`) and prints ONE JSON line.
-
-The reference publishes no numbers (BASELINE.md), so `vs_baseline` is the
-ratio against the self-defined round-0 target of 1.0 Mpix·spp/s/chip — a
-2015-GPU-class progressive rate at the same workload.
+`Graphics.cpp:326-329`) in ONE process on the default device and prints
+ONE JSON line naming that device (kind, count, `nvidia-smi` name and power
+limit).  It benches the fused GPU kernels; where the route chooser
+(`kernels/route.py`) finds no GPU it refuses, unless BENCH_IMPL=oracle
+asks for the plain-jnp oracle explicitly.
 
 Env knobs: BENCH_SIZE (default 1024), BENCH_SPP (default 128 — the
 reference GUI default, all samples in ONE megakernel launch with in-loop
@@ -15,7 +15,7 @@ path regeneration), BENCH_MODE=spectral|rgb (default spectral — the
 reference's ACTIVE kernel is the gen-3 spectral tracer, and the spectral
 megakernel's smaller lane state also makes it the fastest path; rgb runs
 the gen-1/gen-2-style RGB-throughput transport over the same geometry),
-BENCH_IMPL=oracle|pallas (default pallas on TPU), BENCH_RELAX (default
+BENCH_IMPL=auto|oracle (default auto = the GPU kernels), BENCH_RELAX (default
 2.0 — safeguarded over-relaxed sphere tracing; set 0 for the reference's
 classic stepMultiply=0.5 march), BENCH_NORMAL_TAPS (default 4 —
 tetrahedron stencil, the measured optimum on this cheap scene map; 0 =
@@ -33,17 +33,27 @@ import time
 import jax
 import jax.numpy as jnp
 
-BASELINE_MPIX_SPP_S = 1.0  # self-defined target (BASELINE.md)
-
 
 def main():
     size = int(os.environ.get("BENCH_SIZE", "1024"))
     spp = int(os.environ.get("BENCH_SPP", "128"))
     impl = os.environ.get("BENCH_IMPL", "auto")
 
-    from raymarchrenderer_tpu.core.camera import Camera
-    from raymarchrenderer_tpu.render.config import RenderConfig
-    from raymarchrenderer_tpu.scene.builtin import sphere_on_floor
+    from raymarchrenderer.kernels.route import ORACLE, TRITON, kernel_route
+    from raymarchrenderer.utils.cache import enable_persistent_cache
+    from raymarchrenderer.utils.profiling import device_report
+    if impl not in ("auto", TRITON, ORACLE):
+        raise SystemExit(f"BENCH_IMPL={impl!r}: use auto, triton or oracle")
+    route = kernel_route()
+    if impl != ORACLE and route != TRITON:
+        raise SystemExit("no GPU: bench.py times the fused kernels; pass "
+                         "BENCH_IMPL=oracle to time the plain-jnp oracle")
+    use_pallas = impl != ORACLE
+    enable_persistent_cache()
+
+    from raymarchrenderer.core.camera import Camera
+    from raymarchrenderer.render.config import RenderConfig
+    from raymarchrenderer.scene.builtin import sphere_on_floor
 
     relax = float(os.environ.get("BENCH_RELAX", "2.0"))
     taps = int(os.environ.get("BENCH_NORMAL_TAPS", "4"))
@@ -65,7 +75,7 @@ def main():
                   and mode == "rgb")
     # BENCH_ENV=1: same geometry under an equirect env map (the
     # `veranda_1k.hdr` path, `Graphics.cpp:287`) — exercises the deferred
-    # -sky wavefront kernel with K-banked miss events + bilinear lookups.
+    # -sky kernel with K-banked miss events + bilinear lookups.
     # The reference's HDR asset is stripped from the mount, so a synthetic
     # 512x1024 gradient sky stands in (identical lookup work).
     use_env = os.environ.get("BENCH_ENV", "0") == "1" and mode == "rgb"
@@ -74,41 +84,18 @@ def main():
     # same geometry + one sphere light — shadow marches run as extra
     # in-loop segments of the megakernel.
     use_nee = os.environ.get("BENCH_DIRECT", "0") == "1" and mode == "rgb"
+    from raymarchrenderer.scene import builtin
     if use_nee:
-        from raymarchrenderer_tpu.scene.builtin import SceneBuilder
-        b = SceneBuilder()
-        m_floor = b.diffuse([0.8, 0.8, 0.8])
-        m_ball = b.diffuse([0.2, 0.8, 0.3])
-        b.box(m_floor, [0, -0.025, 0], [32, 0.05, 32])
-        b.sphere(m_ball, [0, 1, 0], 1.0)
-        b.light([6, 8, -4], 60.0, 0.8)
-        b.sky(0.015)
-        scene = b.build()
+        scene = builtin.nee_demo()
     elif use_env:
-        import numpy as _np
-
-        from raymarchrenderer_tpu.scene.builtin import SceneBuilder
-        v = _np.linspace(0.0, 1.0, 512)[:, None, None]
-        env_img = (_np.array([0.3, 0.5, 1.0]) * (1 - v)
-                   + _np.array([1.0, 0.6, 0.2]) * v)
-        env_img = _np.broadcast_to(env_img, (512, 1024, 3)) \
-            .astype(_np.float32)
-        b = SceneBuilder()
-        m_floor = b.diffuse([0.8, 0.8, 0.8])
-        m_ball = b.diffuse([0.2, 0.8, 0.3])
-        b.box(m_floor, [0, -0.025, 0], [32, 0.05, 32])
-        b.sphere(m_ball, [0, 1, 0], 1.0)
         # BENCH_ENV_FILTER=nearest: 1-tap GL_NEAREST lookups.
         # BENCH_ENV_GATHER=mxu (default): the deferred-sky composite's
-        # lookups run as an MXU tent-weight contraction against the
-        # solid-angle-prefiltered 32x64 mip — the round-4 fix for the
-        # measured gather wall; =exact restores full-res GL_LINEAR
-        # gathers (the reference-parity mode; docs/performance.md).
-        scene = b.build(env_image=env_img,
-                        env_filter=os.environ.get("BENCH_ENV_FILTER",
-                                                  "linear"),
-                        env_gather=os.environ.get("BENCH_ENV_GATHER",
-                                                  "mxu"))
+        # lookups run as a tent-weight contraction against the
+        # solid-angle-prefiltered 32x64 mip; =exact gathers the
+        # full-res texture (the reference-parity mode).
+        scene = builtin.env_demo(
+            env_filter=os.environ.get("BENCH_ENV_FILTER", "linear"),
+            env_gather=os.environ.get("BENCH_ENV_GATHER", "mxu"))
     else:
         scene = sphere_on_floor()
     params = scene.init_params()
@@ -116,21 +103,19 @@ def main():
                        normal_taps=taps, separate_channels=dispersion)
     corners = Camera(aspect=size / size).corner_rays_flat()
 
-    on_tpu = jax.devices()[0].platform == "tpu"
-    use_pallas = impl == "pallas" or (impl == "auto" and on_tpu)
-    # round-4 schedule knobs (lazy boundary miss test + cheap retire
-    # cadence — render.mega docstrings); defaults are the swept optima,
-    # BENCH_LAZY_MISS=0 / BENCH_REGEN_CADENCE=0 restore the round-3
-    # strict schedule
-    from raymarchrenderer_tpu.kernels.march import (DEFAULT_LAZY_MISS,
+    # schedule knobs (lazy boundary miss test + cheap retire cadence —
+    # render.mega docstrings); defaults are the kernel's,
+    # BENCH_LAZY_MISS=0 / BENCH_REGEN_CADENCE=0 restore the strict
+    # schedule
+    from raymarchrenderer.kernels.march import (DEFAULT_LAZY_MISS,
                                                     DEFAULT_REGEN_CADENCE)
     lazy = os.environ.get("BENCH_LAZY_MISS",
                           "1" if DEFAULT_LAZY_MISS else "0") == "1"
     cadence = int(os.environ.get("BENCH_REGEN_CADENCE",
                                  str(DEFAULT_REGEN_CADENCE)))
     if use_pallas and mode == "spectral":
-        from raymarchrenderer_tpu.kernels.march import render_fused_spectral
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.kernels.march import render_fused_spectral
+        from raymarchrenderer.render.spectral_integrator import (
             spectral_demo)
         scene, params, mats = spectral_demo()
         step = jax.jit(lambda p, c, s: render_fused_spectral(
@@ -138,9 +123,9 @@ def main():
             lazy_miss=lazy, regen_cadence=cadence))
         impl = "pallas-mega-spectral"
     elif use_pallas:
-        from raymarchrenderer_tpu.kernels.march import render_fused
-        # one launch, in-kernel spp loop (megakernel mode): samples
-        # accumulate in VMEM, HBM sees one write per tile
+        from raymarchrenderer.kernels.march import render_fused
+        # one launch, in-kernel spp loop: samples accumulate in
+        # registers, HBM sees one write per pixel
         step = jax.jit(lambda p, c, s: render_fused(
             scene, p, cfg, c, s, n_samples=spp, direct_light=use_nee,
             lazy_miss=lazy, regen_cadence=cadence))
@@ -150,7 +135,7 @@ def main():
                 else "pallas-mega-dispersion" if dispersion
                 else "pallas-mega")
     else:
-        from raymarchrenderer_tpu.render.integrator import render_sample
+        from raymarchrenderer.render.integrator import render_sample
         step = jax.jit(lambda p, c, s: render_sample(
             scene, p, cfg, c, s).stack(-1))
         impl = "oracle"
@@ -175,13 +160,14 @@ def main():
         dt = min(times)
 
     mpix_spp_s = size * size * spp / dt / 1e6
+    dev = device_report()
     result = {
-        "metric": "Mpix*spp/s @ %dx%d (impl=%s, platform=%s)" % (
-            size, size, impl, jax.devices()[0].platform),
-        "value": round(mpix_spp_s, 4),
+        "metric": "Mpix*spp/s @ %dx%d (impl=%s, device=%s)" % (
+            size, size, impl, dev["kind"]),
+        "value": mpix_spp_s,
         "unit": "Mpix*spp/s",
-        "vs_baseline": round(mpix_spp_s / BASELINE_MPIX_SPP_S, 4),
-        "wall_s": round(dt, 3),
+        "device": dev,
+        "wall_s": dt,
         "spp": spp,
         "relax_omega": relax,
         "normal_taps": taps,
@@ -193,32 +179,21 @@ def main():
     # (utils.metrics.spectral_path_profile runs the production trace with
     # its opt-in per-lane counters — nothing is estimated offline).
     if mode == "spectral" and os.environ.get("BENCH_PROFILE", "1") == "1":
-        from raymarchrenderer_tpu.render.spectral_integrator import band_table
-        from raymarchrenderer_tpu.utils.metrics import spectral_path_profile
+        from raymarchrenderer.render.spectral_integrator import band_table
+        from raymarchrenderer.utils.metrics import spectral_path_profile
         mats = band_table(scene)
         prof = spectral_path_profile(scene, params, mats, cfg, corners,
                                      jnp.uint32(1), n_samples=4)
         samples_s = mpix_spp_s * 1e6
-        rays_s = samples_s * prof["segments_per_sample"]
-        evals_s = samples_s * prof["map_evals_per_sample"]
-        # VPU roofline accounting (docs/performance.md): the scene map is
-        # ~68 f32 VPU ops per eval (2 sphere SDFs ~12, 1 box SDF ~24,
-        # 2 opU folds + march-step overhead); peak assumes 8x128x4-lane
-        # VPU at ~0.94 GHz with FMA = ~7.7 TFLOP/s f32 (override
-        # VPU_PEAK_FLOPS for other chips).
-        flops_per_eval = float(os.environ.get("MAP_EVAL_FLOPS", "68"))
-        vpu_peak = float(os.environ.get("VPU_PEAK_FLOPS", "7.7e12"))
         result.update({
-            "rays_per_s": round(rays_s, 1),
-            "map_evals_per_s": round(evals_s, 1),
-            "vpu_utilization_est": round(evals_s * flops_per_eval
-                                         / vpu_peak, 4),
+            "rays_per_s": samples_s * prof["segments_per_sample"],
+            "map_evals_per_s": samples_s * prof["map_evals_per_sample"],
             **prof,
         })
         # measured divergence bound: fraction of megakernel march-step
         # lane slots that actually marched (the rest were parked between
-        # shade-pass cadences or exhausted) — see docs/performance.md
-        from raymarchrenderer_tpu.utils.metrics import mega_occupancy_profile
+        # shade-pass cadences or exhausted)
+        from raymarchrenderer.utils.metrics import mega_occupancy_profile
         result.update(mega_occupancy_profile(
             scene, params, mats, cfg, corners, jnp.uint32(1),
             n_samples=min(spp, 128), tiles=4))

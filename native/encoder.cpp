@@ -1,13 +1,13 @@
 // Native image encode/save runtime.
 //
-// TPU-native equivalent of the reference's C++ save path
+// This framework's equivalent of the reference's C++ save path
 // (`Graphics::SaveImage`, Graphics.cpp:754-799: glReadPixels -> per-pixel
 // linear->sRGB transfer -> SOIL_save_image BMP).  The device keeps the
 // accumulation buffer linear float32; this library does the host-side hot
 // loop (sRGB OETF + quantize, ~50 MB at 4K) and file encode (BMP / PNG via
 // zlib) without Python overhead.  Exposed over a plain C ABI for ctypes.
 //
-// Build: make -C native   (emits raymarchrenderer_tpu/io/_native/libencoder.so)
+// Build: make -C native   (emits raymarchrenderer/io/_native/libencoder.so)
 
 #include <cmath>
 #include <cstdint>

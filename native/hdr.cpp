@@ -1,12 +1,12 @@
 // Native Radiance RGBE (.hdr) decoder.
 //
-// TPU-native equivalent of the reference's native image loader (SOIL's
+// This framework's equivalent of the reference's native image loader (SOIL's
 // `SOIL_load_OGL_HDR_texture`, used for the environment map at
 // `Graphics.cpp:287`).  Decodes both flat and new-style RLE scanlines into
 // linear float32 RGB.  Exposed over a C ABI for ctypes; `io/hdr.py` holds
 // the pure-Python fallback with identical output.
 //
-// Build: make -C native  (emits raymarchrenderer_tpu/io/_native/libhdr.so)
+// Build: make -C native  (emits raymarchrenderer/io/_native/libhdr.so)
 
 #include <cmath>
 #include <cstdio>

@@ -1,6 +1,6 @@
 // Native render scheduler runtime.
 //
-// TPU-native equivalent of the reference's C++ host scheduler
+// This framework's equivalent of the reference's C++ host scheduler
 // (`Program.cpp:107-299`): the square-spiral tile walk from the grid centre
 // and the progressive work queue that drives it — finite mode (all spp of a
 // tile, then advance, `Program.cpp:237-299`) and endless mode (samples==0:
@@ -11,7 +11,7 @@
 // and falls back to an identical pure-Python implementation otherwise; a
 // parity test asserts both emit the same schedule.
 //
-// Build: make -C native  (emits raymarchrenderer_tpu/io/_native/libscheduler.so)
+// Build: make -C native  (emits raymarchrenderer/io/_native/libscheduler.so)
 
 #include <cstdint>
 #include <cstdlib>

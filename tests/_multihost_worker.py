@@ -27,7 +27,7 @@ def main():
     import jax
     jax.config.update("jax_platforms", "cpu")
 
-    from raymarchrenderer_tpu.parallel import multihost
+    from raymarchrenderer.parallel import multihost
     try:
         active = multihost.init(f"localhost:{port}", 2, pid)
     except Exception as e:  # noqa: BLE001 — sandbox may forbid sockets
@@ -46,14 +46,14 @@ def main():
     import jax.numpy as jnp
     import numpy as np
 
-    from raymarchrenderer_tpu.core.camera import Camera
-    from raymarchrenderer_tpu.parallel.sharding import (ShardConfig,
+    from raymarchrenderer.core.camera import Camera
+    from raymarchrenderer.parallel.sharding import (ShardConfig,
                                                         make_mesh,
                                                         render_sharded,
                                                         train_step_sharded)
-    from raymarchrenderer_tpu.render.config import RenderConfig
-    from raymarchrenderer_tpu.render.integrator import render_sample
-    from raymarchrenderer_tpu.scene import builtin
+    from raymarchrenderer.render.config import RenderConfig
+    from raymarchrenderer.render.integrator import render_sample
+    from raymarchrenderer.scene import builtin
 
     scene = builtin.sphere_on_floor()
     params = scene.init_params()

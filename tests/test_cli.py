@@ -12,7 +12,7 @@ def test_repl_render_and_save(tmp_path, monkeypatch, capsys):
     """The reference REPL session: set samples/size, render, save.
     Regression: the repl's `render` Namespace must carry every attribute
     `cmd_render` reads (metrics/profile/env_map/spectral were missing)."""
-    from raymarchrenderer_tpu.app import cli
+    from raymarchrenderer.app import cli
 
     out = tmp_path / "repl.png"
     monkeypatch.setattr(sys, "stdin", io.StringIO(
@@ -37,7 +37,7 @@ def test_repl_render_and_save(tmp_path, monkeypatch, capsys):
 
 
 def test_repl_save_before_render(monkeypatch, capsys):
-    from raymarchrenderer_tpu.app import cli
+    from raymarchrenderer.app import cli
 
     monkeypatch.setattr(sys, "stdin", io.StringIO("save\nquit\n"))
     assert cli.cmd_repl(argparse.Namespace()) == 0
@@ -46,7 +46,7 @@ def test_repl_save_before_render(monkeypatch, capsys):
 
 def test_render_subcommand_writes_image(tmp_path):
     """`raymarch render` end-to-end through the argparse front door."""
-    from raymarchrenderer_tpu.app import cli
+    from raymarchrenderer.app import cli
 
     out = tmp_path / "cli.png"
     rc = cli.main(["render", "--scene", "sphere_on_floor",
@@ -55,22 +55,22 @@ def test_render_subcommand_writes_image(tmp_path):
                    "--out", str(out)])
     assert rc == 0
     assert out.exists()
-    from raymarchrenderer_tpu.io.image import load_png
+    from raymarchrenderer.io.image import load_png
     img = load_png(str(out))
     assert img.shape == (32, 32, 3)
     assert np.isfinite(img).all()
 
 
 def test_module_entry_propagates_exit_codes():
-    """`python -m raymarchrenderer_tpu.app` must propagate verb exit codes
+    """`python -m raymarchrenderer.app` must propagate verb exit codes
     (round-4 fix: a bare main() call swallowed them — parity gate
     failures exited 0)."""
     import subprocess
     import sys
-    src = open(__import__("raymarchrenderer_tpu.app.__main__",
+    src = open(__import__("raymarchrenderer.app.__main__",
                           fromlist=["__file__"]).__file__).read()
     assert "sys.exit(main())" in src
-    r = subprocess.run([sys.executable, "-m", "raymarchrenderer_tpu.app",
+    r = subprocess.run([sys.executable, "-m", "raymarchrenderer.app",
                         "definitely-not-a-verb"],
                        capture_output=True, text=True)
     assert r.returncode == 2  # argparse error must surface
@@ -84,8 +84,8 @@ def test_render_resume_scene_mismatch(tmp_path):
     save_checkpoint, leaving the guard inert end-to-end)."""
     import pytest
 
-    from raymarchrenderer_tpu.app import cli
-    from raymarchrenderer_tpu.io.checkpoint import SceneMismatchError
+    from raymarchrenderer.app import cli
+    from raymarchrenderer.io.checkpoint import SceneMismatchError
 
     ck = tmp_path / "render.ckpt"
     common = ["--width", "32", "--height", "32", "--spp", "1",
@@ -105,46 +105,49 @@ def test_render_resume_scene_mismatch(tmp_path):
     assert rc == 0
 
 
-def test_pick_impl_fused_for_any_size_on_tpu(monkeypatch):
-    """Round-4 verdict: the fused path pads-and-crops arbitrary frame
-    sizes, so impl selection must not re-impose tile divisibility — the
-    reference's own 1280x720 window (Program.cpp:90) silently rendered on
-    the ~75x slower oracle before this fix."""
+def test_pick_impl_fused_for_any_size_on_gpu(monkeypatch):
+    """The fused path pads-and-crops arbitrary frame sizes, so impl
+    selection must not re-impose tile divisibility — the reference's own
+    1280x720 window (Program.cpp:90) must render on the kernel, never on
+    the oracle, wherever a GPU is present."""
     import types
 
     import jax
 
-    from raymarchrenderer_tpu.app import cli
+    from raymarchrenderer.app import cli
 
-    fake_dev = types.SimpleNamespace(platform="tpu")
+    fake_dev = types.SimpleNamespace(platform="gpu")
     monkeypatch.setattr(jax, "devices", lambda *a, **k: [fake_dev])
     args = argparse.Namespace(impl="auto", width=1280, height=720)
-    assert cli._pick_impl(args, None) == "fused"
+    assert cli._pick_impl(args) == "triton"
     args = argparse.Namespace(impl="auto", width=333, height=17)
-    assert cli._pick_impl(args, None) == "fused"
+    assert cli._pick_impl(args) == "triton"
     args = argparse.Namespace(impl="oracle", width=1280, height=720)
-    assert cli._pick_impl(args, None) == "oracle"
+    assert cli._pick_impl(args) == "oracle"
 
 
 def test_persistent_compile_cache(tmp_path, monkeypatch):
     """`render` wires the persistent XLA compilation cache (utils/cache.py)
-    so repeat CLI invocations skip the 20-40s TPU compile: the cache dir
-    must gain entries after a render, `--no-cache`/RAYMARCH_NO_CACHE must
-    leave the config untouched."""
+    so repeat CLI invocations skip the compile: without
+    JAX_COMPILATION_CACHE_DIR the checkout's fixed `.jax_cache/` gains
+    entries after a render; `--no-cache`/RAYMARCH_NO_CACHE leave the
+    config untouched; with the variable set, the cache is placed from
+    outside and nothing is set in code."""
     import jax
 
-    from raymarchrenderer_tpu.app import cli
-    from raymarchrenderer_tpu.utils import cache as ucache
+    from raymarchrenderer.app import cli
+    from raymarchrenderer.utils import cache as ucache
 
     prev = jax.config.jax_compilation_cache_dir
     prev_min = jax.config.jax_persistent_cache_min_compile_time_secs
     cdir = tmp_path / "jaxcache"
-    monkeypatch.setenv("RAYMARCH_CACHE_DIR", str(cdir))
-    monkeypatch.setenv("RAYMARCH_CACHE_MIN_SECS", "0")  # tiny CPU compiles
+    # stand-in for <checkout>/.jax_cache so the test leaves the repo alone
+    monkeypatch.setattr(ucache, "CHECKOUT_CACHE_DIR", str(cdir))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     try:
         # disabled path: the kill-switch (conftest defaults it on
         # suite-wide so other tests' cli.main() calls never bind the
-        # real ~/.cache; set explicitly here so an ambient override
+        # checkout's cache; set explicitly here so an ambient override
         # can't break the assertion)
         monkeypatch.setenv("RAYMARCH_NO_CACHE", "1")
         assert ucache.enable_persistent_cache() is None
@@ -158,6 +161,14 @@ def test_persistent_compile_cache(tmp_path, monkeypatch):
         assert rc == 0
         assert jax.config.jax_compilation_cache_dir == prev
         assert not cdir.exists()
+
+        # placed from outside: returned as is, nothing set in code
+        outside = tmp_path / "outside"
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(outside))
+        assert ucache.enable_persistent_cache() == str(outside)
+        assert jax.config.jax_compilation_cache_dir == prev
+        assert not cdir.exists()
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
 
         # enabled: the front door points jax at the dir and a render
         # populates it (a size nothing else compiled, so the compile

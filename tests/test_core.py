@@ -6,16 +6,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchrenderer_tpu.core import sdf
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.core.color import linear_to_srgb, srgb_to_linear
-from raymarchrenderer_tpu.core.rng import RNGStream, hash_u32, uniform
-from raymarchrenderer_tpu.core.sampling import (
+from raymarchrenderer.core import sdf
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.core.color import linear_to_srgb, srgb_to_linear
+from raymarchrenderer.core.rng import RNGStream, hash_u32, uniform
+from raymarchrenderer.core.sampling import (
     cosine_hemisphere, fresnel_schlick, make_tbn, uniform_sphere,
     uniform_sphere_or_hemisphere,
 )
-from raymarchrenderer_tpu.core.spectral import sample_band, wavelength_to_rgb
-from raymarchrenderer_tpu.core.vecmath import Vec3, reflect, refract, rotate_axis
+from raymarchrenderer.core.spectral import sample_band, wavelength_to_rgb
+from raymarchrenderer.core.vecmath import Vec3, reflect, refract, rotate_axis
 
 
 def v(x, y, z):

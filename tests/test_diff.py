@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.core.vecmath import Vec3
-from raymarchrenderer_tpu.diff.march import march_diff
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.integrator import render_sample
-from raymarchrenderer_tpu.scene.builtin import single_sphere, sphere_on_floor
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.core.vecmath import Vec3
+from raymarchrenderer.diff.march import march_diff
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.integrator import render_sample
+from raymarchrenderer.scene.builtin import single_sphere, sphere_on_floor
 
 CFG = RenderConfig(width=8, height=8, spp=1, max_steps=256,
                    max_bounces=2, max_dist=100.0)
@@ -151,7 +151,7 @@ class TestPixelGradients:
         point), so the continuous gradient is legitimately zero — geometry
         gradients appear through next-event estimation, whose cos/1-r²
         terms vary smoothly with the hit point.  Hence direct_light=True."""
-        from raymarchrenderer_tpu.scene.builtin import SceneBuilder
+        from raymarchrenderer.scene.builtin import SceneBuilder
         b = SceneBuilder()
         m_floor = b.diffuse([0.8, 0.8, 0.8])
         m_ball = b.diffuse([0.5, 0.5, 0.5])
@@ -188,14 +188,14 @@ class TestPixelGradients:
 
 
 class TestFusedDifferentiable:
-    """The production differentiable path: Pallas forward march
-    (`kernels.march.march_fused`) + the shared implicit adjoint
-    (`diff.march.march_diff_fused`).  Everything here runs the Pallas
+    """The production differentiable path: the recording kernel's forward
+    (`kernels.record.trace_record_fused`) + the shared implicit adjoint
+    (`diff.march.march_diff_recorded`).  Everything here runs the Pallas
     interpreter (the CPU "fake backend")."""
 
     @pytest.fixture(scope="class")
     def setup(self):
-        from raymarchrenderer_tpu.render.integrator import render_patch
+        from raymarchrenderer.render.integrator import render_patch
         scene = sphere_on_floor()
         cfg = RenderConfig(width=64, height=32, spp=1, max_steps=96,
                            max_bounces=3, max_dist=100.0)
@@ -203,27 +203,36 @@ class TestFusedDifferentiable:
         return scene, cfg, corners, render_patch
 
     def test_march_fused_bitwise_parity(self, setup):
-        """The Pallas march IS the oracle march traced over tiles."""
-        from raymarchrenderer_tpu.core.rng import RNGStream
-        from raymarchrenderer_tpu.kernels.march import march_fused
-        from raymarchrenderer_tpu.render.integrator import march
-        from raymarchrenderer_tpu.render.raygen import (
+        """The recording kernel's bounce-0 banks ARE the oracle march of
+        the primary rays, traced over blocks."""
+        from raymarchrenderer.core.rng import RNGStream
+        from raymarchrenderer.kernels.record import trace_record_fused
+        from raymarchrenderer.render.integrator import march
+        from raymarchrenderer.render.raygen import (
             eye_vec, pixel_grid, primary_rays)
         scene, cfg, corners, _ = setup
         params = scene.init_params()
-        px, py = pixel_grid(cfg.width, cfg.height)
-        rng = RNGStream(cfg.seed, px, py, jnp.uint32(0), jnp.uint32(1 << 20))
-        d = primary_rays(corners, px, py, cfg.width, cfg.height, rng)
-        e = eye_vec(corners)
         shape = (cfg.height, cfg.width)
-        eye = Vec3(jnp.broadcast_to(e.x, shape),
-                   jnp.broadcast_to(e.y, shape),
-                   jnp.broadcast_to(e.z, shape))
-        ones = jnp.ones(shape, jnp.float32)
-        act = jnp.ones(shape, bool)
-        t0, m0, h0 = march(scene, params, cfg, eye, d, ones, act)
-        t1, m1, h1 = march_fused(scene, params, cfg, eye, d, ones, act,
-                                 interpret=True)
+
+        def oracle(p):
+            px, py = pixel_grid(cfg.width, cfg.height)
+            rng = RNGStream(cfg.seed, px, py, jnp.uint32(0),
+                            jnp.uint32(1 << 20))
+            d = primary_rays(corners, px, py, cfg.width, cfg.height, rng)
+            e = eye_vec(corners)
+            eye = Vec3(jnp.broadcast_to(e.x, shape),
+                       jnp.broadcast_to(e.y, shape),
+                       jnp.broadcast_to(e.z, shape))
+            return march(scene, p, cfg, eye, d, jnp.ones(shape, jnp.float32),
+                         jnp.ones(shape, bool))
+
+        # both sides compiled (the kernel regenerates its primary rays):
+        # op-by-op (eager) raygen + march round the fused arithmetic
+        # differently at the ulp level
+        t0, m0, h0 = jax.jit(oracle)(params)
+        rec = trace_record_fused(scene, params, cfg, corners, (0, 0), shape,
+                                 jnp.uint32(0), interpret=True)
+        t1, m1, h1 = rec["t"][0], rec["mid"][0], rec["hit"][0] > 0
         np.testing.assert_array_equal(np.asarray(t0), np.asarray(t1))
         np.testing.assert_array_equal(np.asarray(m0), np.asarray(m1))
         np.testing.assert_array_equal(np.asarray(h0), np.asarray(h1))
@@ -243,13 +252,13 @@ class TestFusedDifferentiable:
             return jnp.sum(c.stack(-1) ** 2)
 
         l0, g0 = jax.value_and_grad(loss)(base, "oracle")
-        l1, g1 = jax.value_and_grad(loss)(base, "fused")
+        l1, g1 = jax.value_and_grad(loss)(base, "recorded")
         assert float(l0) == float(l1)
         for a, b in zip(jax.tree.leaves(g0), jax.tree.leaves(g1)):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
     def test_fused_diff_composes_with_remat(self, setup):
-        """jax.checkpoint over the fused-march render (the O(1)-in-spp
+        """jax.checkpoint over the recorded render (the O(1)-in-spp
         memory recipe of train_step_sharded) leaves grads unchanged."""
         scene, cfg, corners, render_patch = setup
         base = scene.init_params()
@@ -258,7 +267,7 @@ class TestFusedDifferentiable:
         def one(params):
             c = render_patch(scene, params, cfg, corners, origin,
                              (cfg.height, cfg.width), jnp.uint32(0),
-                             differentiable=True, march_impl="fused",
+                             differentiable=True, march_impl="recorded",
                              interpret=True)
             return jnp.sum(c.stack(-1) ** 2)
 
@@ -275,7 +284,7 @@ class TestBatchedSppAndRematPolicy:
     def test_render_patch_spp_matches_serial(self):
         """Folding the sample axis into rows must reproduce the serial
         per-sample sum bitwise (same RNG streams, one axis-sum)."""
-        from raymarchrenderer_tpu.render.integrator import (render_patch,
+        from raymarchrenderer.render.integrator import (render_patch,
                                                             render_patch_spp)
         scene = sphere_on_floor()
         cfg = RenderConfig(width=32, height=16, max_steps=48, max_bounces=2,
@@ -297,8 +306,8 @@ class TestBatchedSppAndRematPolicy:
         re-run the march: the Pallas call count in the grad jaxpr equals
         the no-remat count (the march planes are saved residuals), while
         a plain save-nothing remat doubles it."""
-        from raymarchrenderer_tpu.diff.march import march_save_policy
-        from raymarchrenderer_tpu.render.integrator import render_patch_spp
+        from raymarchrenderer.diff.march import march_save_policy
+        from raymarchrenderer.render.integrator import render_patch_spp
         scene = sphere_on_floor()
         cfg = RenderConfig(width=128, height=8, max_steps=16, max_bounces=3,
                            max_dist=100.0)
@@ -311,7 +320,7 @@ class TestBatchedSppAndRematPolicy:
                 c = render_patch_spp(scene, p, cfg, corners, origin,
                                      (8, 128), jnp.uint32(0), 2,
                                      differentiable=True,
-                                     march_impl="fused", interpret=True)
+                                     march_impl="recorded", interpret=True)
                 return jnp.sum(c.stack(-1) ** 2)
             if policy is not None:
                 fwd = jax.checkpoint(fwd, policy=policy)
@@ -330,8 +339,8 @@ class TestBatchedSppAndRematPolicy:
     def test_policy_remat_grads_equal_no_remat(self):
         """The march-saving policy is a pure memory/schedule change —
         gradients are bitwise-identical to no remat at all."""
-        from raymarchrenderer_tpu.diff.march import march_save_policy
-        from raymarchrenderer_tpu.render.integrator import render_patch_spp
+        from raymarchrenderer.diff.march import march_save_policy
+        from raymarchrenderer.render.integrator import render_patch_spp
         scene = sphere_on_floor()
         cfg = RenderConfig(width=32, height=16, max_steps=48, max_bounces=2,
                            max_dist=100.0)
@@ -342,7 +351,7 @@ class TestBatchedSppAndRematPolicy:
         def fwd(p):
             c = render_patch_spp(scene, p, cfg, corners, origin, (16, 32),
                                  jnp.uint32(0), 2, differentiable=True,
-                                 march_impl="fused", interpret=True)
+                                 march_impl="recorded", interpret=True)
             return jnp.sum(c.stack(-1) ** 2)
 
         g0 = jax.grad(fwd)(base)
@@ -352,7 +361,7 @@ class TestBatchedSppAndRematPolicy:
 
 
 class TestRecordedDifferentiable:
-    """The round-3 production differentiable path: the WHOLE forward trace
+    """The production differentiable path: the WHOLE forward trace
     (every bounce's march + every shadow march) runs as ONE Pallas launch
     (`kernels.record.trace_record_fused`) and the XLA side replays only
     the shade chain over the recorded geometry with the shared implicit
@@ -360,7 +369,7 @@ class TestRecordedDifferentiable:
 
     @pytest.fixture(scope="class")
     def setup(self):
-        from raymarchrenderer_tpu.render.integrator import render_patch_spp
+        from raymarchrenderer.render.integrator import render_patch_spp
         cfg = RenderConfig(width=64, height=32, spp=1, max_steps=96,
                            max_bounces=3, max_dist=100.0)
         corners = Camera(aspect=2.0).corner_rays_flat()
@@ -392,13 +401,13 @@ class TestRecordedDifferentiable:
     def test_recorded_nee_grads_match_oracle(self, setup):
         """With NEE, the recorded and per-bounce paths are the same
         estimator but not bitwise: the kernel derives the shadow geometry
-        (o_sh, ldir, dist_l) under Mosaic and the oracle under XLA, whose
+        (o_sh, ldir, dist_l) in the kernel and the oracle under XLA, whose
         FMA contraction differs at ulp level — grazing shadow rays near
         CSG edges can flip `lit` on a handful of lanes (the oracle itself
         flips the same lanes between eager and jit).  The loss agrees to
         float32 noise; per-leaf grads to ~1% (a few flipped lanes out of
         thousands).  The no-NEE twin above is bitwise."""
-        from raymarchrenderer_tpu.scene.builtin import csg_demo
+        from raymarchrenderer.scene.builtin import csg_demo
         cfg, corners, rps = setup
         scene = csg_demo()
         base = scene.init_params()
@@ -416,7 +425,7 @@ class TestRecordedDifferentiable:
         """march_save_policy over the recorded render: the banked planes
         are the saved residuals, the backward replay never re-launches the
         recording kernel, grads unchanged."""
-        from raymarchrenderer_tpu.diff.march import march_save_policy
+        from raymarchrenderer.diff.march import march_save_policy
         cfg, corners, rps = setup
         scene = sphere_on_floor()
         base = scene.init_params()
@@ -433,7 +442,7 @@ class TestRecordedDifferentiable:
         per-bounce path uses fori_loop, so backward sums reassociate)."""
         cfg, corners, rps = setup
         cfg = cfg.replace(rr_start_bounce=1, rr_min_prob=0.05)
-        from raymarchrenderer_tpu.scene.builtin import cornell
+        from raymarchrenderer.scene.builtin import cornell
         scene = cornell()
         base = scene.init_params()
         l0, g0 = jax.value_and_grad(
@@ -446,56 +455,6 @@ class TestRecordedDifferentiable:
                                        rtol=1e-6, atol=5e-7)
 
 
-def test_recorder_wavefront_banks_match_mega():
-    """The bounce-synchronous wavefront recorder (the fallback branch of
-    `trace_record_fused`) and the megakernel-schedule recorder must bank
-    the SAME residual planes — they restate the same trace.  This also
-    keeps the otherwise-unreached wavefront branch under test."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from raymarchrenderer_tpu.core.rng import RNGStream
-    from raymarchrenderer_tpu.core.vecmath import Vec3
-    from raymarchrenderer_tpu.kernels.record import trace_record_fused
-    from raymarchrenderer_tpu.render.raygen import (eye_vec, pixel_grid,
-                                                    primary_rays)
-    from raymarchrenderer_tpu.scene.builtin import csg_demo
-    scene = csg_demo()
-    params = scene.init_params()
-    cfg = RenderConfig(width=64, height=32, max_steps=96, max_bounces=3,
-                       max_dist=100.0)
-    corners = Camera(aspect=2.0).corner_rays_flat()
-    px, py = pixel_grid(cfg.width, cfg.height)
-    rng = RNGStream(cfg.seed, px, py, jnp.uint32(0), jnp.uint32(1 << 20))
-    d = primary_rays(corners, px, py, cfg.width, cfg.height, rng)
-    e = eye_vec(corners)
-    shape = (cfg.height, cfg.width)
-    eye = Vec3(jnp.broadcast_to(e.x, shape), jnp.broadcast_to(e.y, shape),
-               jnp.broadcast_to(e.z, shape))
-    a = trace_record_fused(scene, params, cfg, eye, d, px, py,
-                           jnp.uint32(0), direct_light=True,
-                           interpret=True, mode="wavefront")
-    b = trace_record_fused(scene, params, cfg, eye, d, px, py,
-                           jnp.uint32(0), direct_light=True,
-                           interpret=True, corners=corners, mode="mega")
-    assert set(a) == set(b) == {"t", "mid", "hit", "sd"}
-    # tolerance, not bitwise: the wavefront recorder marches the d0/eye
-    # planes the caller computed in XLA while the mega recorder
-    # REGENERATES primary rays in-kernel (same RNG keys, different
-    # compilation → 1-2 ulp direction differences even at bounce 0), and
-    # later bounces' origins come from the two recorders' shade chains —
-    # an ulp origin shift moves a hit to the neighbouring march step
-    # (≤ ~1e-3·ω in t) on a small fraction of lanes
-    dt = np.abs(np.asarray(a["t"]) - np.asarray(b["t"]))
-    assert float(dt.max()) < 5e-3, float(dt.max())
-    for k in ("mid", "hit"):
-        frac = (np.asarray(a[k]) != np.asarray(b[k])).mean()
-        assert frac < 5e-3, (k, frac)
-    sd_frac = (np.asarray(a["sd"]) != np.asarray(b["sd"])).mean()
-    assert sd_frac < 5e-3, sd_frac
-
-
 class TestSpectralDiff:
     """Round-4 differentiable spectral transport: the band filter is
     reparameterized (continuous wavelength draw + smooth-boxcar
@@ -503,7 +462,7 @@ class TestSpectralDiff:
     rows.  FD-checked, and a band EDGE is recovered by SGD."""
 
     def _setup(self):
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.render.spectral_integrator import (
             band_table, spectral_demo)
         scene, params, mats = spectral_demo()
         cfg = RenderConfig(width=64, height=16, max_steps=48,
@@ -514,7 +473,7 @@ class TestSpectralDiff:
     def test_band_gradient_fd(self):
         """Analytic d(loss)/d(max_wave) matches central differences of the
         soft-mode loss (CRN: fixed sample batch -> deterministic)."""
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.render.spectral_integrator import (
             SpectralMaterials, render_patch_spp_spectral)
         scene, params, mats, cfg, corners = self._setup()
         origin = (jnp.int32(0), jnp.int32(0))
@@ -540,9 +499,9 @@ class TestSpectralDiff:
         """SGD through the sharded spectral step recovers a band edge:
         target rendered with the sphere band ending at 590 nm, fit
         initialized at 680 nm must move most of the way back."""
-        from raymarchrenderer_tpu.parallel.sharding import (
+        from raymarchrenderer.parallel.sharding import (
             ShardConfig, make_mesh, train_step_spectral_sharded)
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.render.spectral_integrator import (
             SpectralMaterials, render_patch_spp_spectral)
         scene, params, mats, cfg, corners = self._setup()
         origin = (jnp.int32(0), jnp.int32(0))
@@ -581,7 +540,7 @@ class TestRecordedEnvMap:
     downgraded to the per-bounce fused path."""
 
     def _setup(self):
-        from raymarchrenderer_tpu.scene import builtin
+        from raymarchrenderer.scene import builtin
         rng = np.random.RandomState(11)
         img = rng.uniform(0.0, 2.0, (8, 16, 3)).astype(np.float32)
         b = builtin.SceneBuilder()
@@ -595,7 +554,7 @@ class TestRecordedEnvMap:
         return scene, cfg, corners
 
     def _loss(self, scene, cfg, corners, impl):
-        from raymarchrenderer_tpu.render.integrator import render_patch_spp
+        from raymarchrenderer.render.integrator import render_patch_spp
 
         def loss(params):
             c = render_patch_spp(scene, params, cfg, corners, (0, 0),
@@ -634,7 +593,7 @@ class TestSpectralRecorded:
     per-bounce differentiable spectral path."""
 
     def test_spectral_recorded_grads_match_oracle(self):
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.render.spectral_integrator import (
             SpectralMaterials, render_patch_spp_spectral, spectral_demo)
         scene, params, mats = spectral_demo()
         cfg = RenderConfig(width=64, height=32, max_steps=96,
@@ -671,8 +630,8 @@ class TestDispersionRecorded:
     per-channel geometry and the replay's channel loop slices it."""
 
     def test_dispersion_recorded_grads_match_oracle(self):
-        from raymarchrenderer_tpu.render.integrator import render_patch_spp
-        from raymarchrenderer_tpu.scene.builtin import glass_demo
+        from raymarchrenderer.render.integrator import render_patch_spp
+        from raymarchrenderer.scene.builtin import glass_demo
         scene = glass_demo()
         cfg = RenderConfig(width=64, height=32, max_steps=96,
                            max_bounces=3, max_dist=100.0,

@@ -1,14 +1,13 @@
-"""MXU env lookup (`env_gather="mxu"`): mechanism parity + bounded error.
+"""Mip env lookup (`env_gather="mxu"`): mechanism parity + bounded error.
 
-The round-3 measured wall on env-map scenes was the XLA:TPU equirect
-gather in the deferred-sky composite (latency-bound random access —
-docs/performance.md).  Round 4 replaces it with an MXU contraction: tent
-weights against every texel of a solid-angle-prefiltered table
-(`Scene._sky_uv_mxu`).  Contracts tested here:
+The deferred-sky composite's equirect lookup is a random gather over the
+full-res texture.  `env_gather="mxu"` looks up a solid-angle-prefiltered
+table instead (`Scene.sky_uv` on `prefilter_env`'s mip), with the same
+filter.  Contracts tested here:
 
   1. MECHANISM parity: when the env image already has the table's
-     resolution the prefilter is the identity, so the tent contraction
-     must reproduce the exact GL_LINEAR / GL_NEAREST lookup to float
+     resolution the prefilter is the identity, so the mip lookup must
+     reproduce the exact GL_LINEAR / GL_NEAREST lookup to float
      tolerance — same footprint, u wrap, v clamp-to-edge.
   2. Prefilter semantics: constant image -> identity; solid-angle (sin θ)
      row weighting, normalized per block.
@@ -20,12 +19,12 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.kernels.march import render_fused
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.integrator import render_sample
-from raymarchrenderer_tpu.scene import builtin
-from raymarchrenderer_tpu.scene.graph import prefilter_env
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.kernels.march import render_fused
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.integrator import render_sample
+from raymarchrenderer.scene import builtin
+from raymarchrenderer.scene.graph import prefilter_env
 
 CFG = RenderConfig(width=128, height=32, spp=1, max_steps=96,
                    max_bounces=3, max_dist=100.0)
@@ -45,8 +44,8 @@ def _env_scene(img, **kw):
 
 
 class TestMechanismParity:
-    """Table res == image res -> identity prefilter -> the MXU contraction
-    IS the exact lookup (modulo matmul accumulation, ~1e-6)."""
+    """Table res == image res -> identity prefilter -> the mip lookup IS
+    the exact lookup."""
 
     def _uv(self):
         rng = np.random.RandomState(3)

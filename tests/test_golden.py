@@ -22,9 +22,9 @@ def test_golden(name, path):
     gold_path = os.path.join(GOLD_DIR, f"{name}.npy")
     if not os.path.exists(gold_path):
         pytest.skip("golden not generated")
-    from raymarchrenderer_tpu.core.camera import Camera
-    from raymarchrenderer_tpu.render.config import RenderConfig
-    from raymarchrenderer_tpu.render.integrator import render
+    from raymarchrenderer.core.camera import Camera
+    from raymarchrenderer.render.config import RenderConfig
+    from raymarchrenderer.render.integrator import render
     scene = build(name, path)
     cfg = RenderConfig(**REG_CFG)
     cam = Camera(aspect=1.0)

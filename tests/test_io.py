@@ -6,11 +6,11 @@ import jax
 
 import numpy as np
 
-from raymarchrenderer_tpu.io.checkpoint import load_checkpoint, save_checkpoint
-from raymarchrenderer_tpu.io.image import (
+from raymarchrenderer.io.checkpoint import load_checkpoint, save_checkpoint
+from raymarchrenderer.io.image import (
     load_png, save_bmp, save_png, timestamp_name, to_srgb_u8,
 )
-from raymarchrenderer_tpu.render.config import RenderConfig
+from raymarchrenderer.render.config import RenderConfig
 
 
 def _gradient(h=16, w=32):
@@ -48,7 +48,7 @@ class TestImage:
         assert n == "2015-07-11_01-41-03.bmp"  # Program.cpp:71-84 format
 
     def test_exr_roundtrip_lossless(self, tmp_path):
-        from raymarchrenderer_tpu.io.image import load_exr, save_exr
+        from raymarchrenderer.io.image import load_exr, save_exr
         p = str(tmp_path / "x.exr")
         img = _gradient()
         img[3, 5] = [1e-9, 4e6, -0.25]  # HDR + negative: float32 exact
@@ -57,7 +57,7 @@ class TestImage:
         np.testing.assert_array_equal(back, img)
 
     def test_exr_header_wire_format(self, tmp_path):
-        from raymarchrenderer_tpu.io.image import save_exr
+        from raymarchrenderer.io.image import save_exr
         p = str(tmp_path / "x.exr")
         save_exr(p, _gradient())
         raw = open(p, "rb").read()
@@ -67,7 +67,7 @@ class TestImage:
         assert b"compression\x00compression\x00" in raw
 
     def test_save_image_dispatch_exr(self, tmp_path):
-        from raymarchrenderer_tpu.io.image import load_exr, save_image
+        from raymarchrenderer.io.image import load_exr, save_image
         p = str(tmp_path / "y.exr")
         save_image(p, _gradient())
         np.testing.assert_array_equal(load_exr(p), _gradient())
@@ -90,9 +90,9 @@ class TestCheckpoint:
         (structure + params) resumes fine, legacy digest-less files load."""
         import pytest
 
-        from raymarchrenderer_tpu.io.checkpoint import (SceneMismatchError,
+        from raymarchrenderer.io.checkpoint import (SceneMismatchError,
                                                         scene_digest)
-        from raymarchrenderer_tpu.scene import builtin
+        from raymarchrenderer.scene import builtin
         s1 = builtin.sphere_on_floor()
         s2 = builtin.cornell()
         d1 = scene_digest(s1, s1.init_params())
@@ -115,8 +115,8 @@ class TestCheckpoint:
     def test_param_change_changes_digest(self):
         import jax.numpy as jnp
 
-        from raymarchrenderer_tpu.io.checkpoint import scene_digest
-        from raymarchrenderer_tpu.scene import builtin
+        from raymarchrenderer.io.checkpoint import scene_digest
+        from raymarchrenderer.scene import builtin
         s = builtin.sphere_on_floor()
         params = s.init_params()
         d1 = scene_digest(s, params)
@@ -138,7 +138,7 @@ class TestHDR:
     def test_roundtrip_python(self):
         import tempfile
 
-        from raymarchrenderer_tpu.io.hdr import load_hdr, loads_hdr, save_hdr
+        from raymarchrenderer.io.hdr import load_hdr, loads_hdr, save_hdr
         img = self._make_env()
         with tempfile.TemporaryDirectory() as d:
             p = os.path.join(d, "e.hdr")
@@ -152,8 +152,8 @@ class TestHDR:
     def test_native_matches_python(self):
         import tempfile
 
-        from raymarchrenderer_tpu.io import native_bindings
-        from raymarchrenderer_tpu.io.hdr import loads_hdr, save_hdr
+        from raymarchrenderer.io import native_bindings
+        from raymarchrenderer.io.hdr import loads_hdr, save_hdr
         if not native_bindings.available_hdr():
             import pytest
             pytest.skip("native hdr decoder not built")
@@ -167,7 +167,7 @@ class TestHDR:
 
     def test_rle_scanline_decode(self):
         """Hand-built new-style RLE scanline (run + literal mix)."""
-        from raymarchrenderer_tpu.io.hdr import loads_hdr
+        from raymarchrenderer.io.hdr import loads_hdr
         w, h = 8, 1
         header = b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n"
         res = f"-Y {h} +X {w}\n".encode()
@@ -188,9 +188,9 @@ class TestHDR:
 
         import jax.numpy as jnp
 
-        from raymarchrenderer_tpu.core.vecmath import Vec3
-        from raymarchrenderer_tpu.io.hdr import load_env_map, save_hdr
-        from raymarchrenderer_tpu.scene import loads_scene
+        from raymarchrenderer.core.vecmath import Vec3
+        from raymarchrenderer.io.hdr import load_env_map, save_hdr
+        from raymarchrenderer.scene import loads_scene
         img = np.zeros((4, 8, 3), np.float32)
         img[..., 0] = 2.0
         with tempfile.TemporaryDirectory() as d:
@@ -212,7 +212,7 @@ def test_load_bmp_8bit_palette(tmp_path):
     loader previously rejected it)."""
     import os
 
-    from raymarchrenderer_tpu.io.image import load_bmp
+    from raymarchrenderer.io.image import load_bmp
 
     # synthesize a 6x3 indexed BMP: palette of 4 BGRX entries, 4-byte
     # padded rows, bottom-up storage

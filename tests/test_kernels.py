@@ -1,6 +1,7 @@
 """Pallas fused-kernel parity vs the pure-JAX oracle (SURVEY.md §4 item 2).
 
-Runs the kernel in interpreter mode on CPU (the "fake backend").  Single
+Runs the Triton-route kernels in interpreter mode on CPU (the "fake
+backend").  Single
 samples are bitwise-identical (same RNG, same op order); multi-sample and
 NEE paths accumulate in a different order, so a few rays near the hit_eps
 threshold may flip — parity is therefore: tiny max diff on ≥99.9% of
@@ -10,13 +11,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.kernels.march import (
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.kernels.march import (
     render_fused, render_progressive_fused,
 )
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.integrator import render, render_sample
-from raymarchrenderer_tpu.scene import builtin
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.integrator import render, render_sample
+from raymarchrenderer.scene import builtin
 
 CFG = RenderConfig(width=128, height=32, spp=1, max_steps=96,
                    max_bounces=3, max_dist=100.0)
@@ -62,7 +63,7 @@ class TestFusedParity:
         assert _frac_off(oracle, fused) < 1e-3
 
     def test_data_driven_scene_from_file(self):
-        from raymarchrenderer_tpu.scene import load_scene
+        from raymarchrenderer.scene import load_scene
         scene = load_scene("data/scenes/default.scene")
         params = scene.init_params()
         oracle = render_sample(scene, params, CFG, _corners(),
@@ -82,7 +83,7 @@ class TestFusedParity:
         assert _frac_off(img_o, img_f) < 1e-3
 
     def test_env_map_deferred_sky(self):
-        """Env-map scenes run the wavefront kernel with the (bilinear) sky
+        """Env-map scenes run the megakernel with the (bilinear) sky
         gather deferred to an XLA composite.
 
         Tolerance note: the banked miss THROUGHPUT is bitwise-equal to the
@@ -193,8 +194,8 @@ class TestFusedParity:
         np.testing.assert_array_equal(np.asarray(oracle), np.asarray(fused))
 
     def test_misaligned_frame_spectral_pads(self):
-        from raymarchrenderer_tpu.kernels.march import render_fused_spectral
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.kernels.march import render_fused_spectral
+        from raymarchrenderer.render.spectral_integrator import (
             render_sample_spectral, spectral_demo)
         scene, params, mats = spectral_demo()
         cfg = CFG.replace(width=149, height=13, max_bounces=3)
@@ -212,10 +213,10 @@ class TestFusedParity:
 
 class TestFusedDispersion:
     """`separate_channels` (gen-1 dispersion, `RayMarch.glsl:580-598`)
-    inside the fused kernel: mega mode folds the channel into the
-    path-regeneration loop (3 one-hot paths per sample); wavefront loops
-    the three traces per sample.  Both share the sample's primary ray and
-    draw shade stream s·4+ci+1 — the oracle's exact keying."""
+    inside the fused kernel: the megakernel folds the channel into the
+    path-regeneration loop (3 one-hot paths per sample), sharing the
+    sample's primary ray and drawing shade stream s·4+ci+1 — the oracle's
+    exact keying."""
 
     def test_mega_single_sample_bitwise(self):
         scene = builtin.glass_demo()
@@ -224,8 +225,7 @@ class TestFusedDispersion:
         oracle = render_sample(scene, params, cfg, _corners(),
                                jnp.uint32(2)).stack(-1)
         fused = render_fused(scene, params, cfg, _corners(), jnp.uint32(2),
-                             n_samples=1, block=BLOCK, interpret=True,
-                             mode="mega")
+                             n_samples=1, block=BLOCK, interpret=True)
         # single sample banks R, G, B in the oracle's association order
         np.testing.assert_array_equal(np.asarray(oracle), np.asarray(fused))
 
@@ -237,21 +237,9 @@ class TestFusedDispersion:
                            jnp.uint32(s)).stack(-1) for s in (1, 2, 3)]
         mean = sum(np.asarray(x) for x in o) / 3.0
         fused = render_fused(scene, params, cfg, _corners(), jnp.uint32(1),
-                             n_samples=3, block=BLOCK, interpret=True,
-                             mode="mega")
+                             n_samples=3, block=BLOCK, interpret=True)
         # multi-sample banking re-associates the float32 sum
         assert _frac_off(mean, fused) < 1e-3
-
-    def test_wavefront_single_sample_bitwise(self):
-        scene = builtin.glass_demo()
-        params = scene.init_params()
-        cfg = CFG.replace(separate_channels=True)
-        oracle = render_sample(scene, params, cfg, _corners(),
-                               jnp.uint32(0)).stack(-1)
-        fused = render_fused(scene, params, cfg, _corners(), jnp.uint32(0),
-                             n_samples=1, block=BLOCK, interpret=True,
-                             mode="wavefront")
-        np.testing.assert_array_equal(np.asarray(oracle), np.asarray(fused))
 
     def test_env_map_dispersion_matches_oracle(self):
         """`separate_channels` composes with the deferred-sky env path:
@@ -278,12 +266,13 @@ class TestFusedDispersion:
 
 
 class TestFusedSpectral:
-    @pytest.mark.parametrize("mode", ["wavefront", "mega"])
-    def test_fused_spectral_matches_oracle(self, mode):
+    @pytest.mark.parametrize("block", [BLOCK, (16, 16)],
+                             ids=["8x128", "16x16"])
+    def test_fused_spectral_matches_oracle(self, block):
         import numpy as np
 
-        from raymarchrenderer_tpu.kernels.march import render_fused_spectral
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.kernels.march import render_fused_spectral
+        from raymarchrenderer.render.spectral_integrator import (
             render_sample_spectral, spectral_demo)
         scene, params, mats = spectral_demo()
         cfg = CFG.replace(max_bounces=3)
@@ -291,16 +280,16 @@ class TestFusedSpectral:
                                               _corners(), jnp.uint32(1)).stack(-1))
         b = np.asarray(render_fused_spectral(scene, params, mats, cfg,
                                              _corners(), jnp.uint32(1),
-                                             n_samples=1, block=BLOCK,
-                                             interpret=True, mode=mode))
+                                             n_samples=1, block=block,
+                                             interpret=True))
         d = np.abs(a - b)
         assert float((d > 1e-5).mean()) < 1e-3
 
     def test_fused_spectral_mega_multisample(self):
         import numpy as np
 
-        from raymarchrenderer_tpu.kernels.march import render_fused_spectral
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.kernels.march import render_fused_spectral
+        from raymarchrenderer.render.spectral_integrator import (
             render_sample_spectral, spectral_demo)
         scene, params, mats = spectral_demo()
         cfg = CFG.replace(max_bounces=3)
@@ -311,5 +300,5 @@ class TestFusedSpectral:
         b = np.asarray(render_fused_spectral(scene, params, mats, cfg,
                                              _corners(), jnp.uint32(2),
                                              n_samples=3, block=BLOCK,
-                                             interpret=True, mode="mega"))
+                                             interpret=True))
         assert _frac_off(mean, b) < 1e-3

@@ -7,14 +7,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.core.rng import RNGStream
-from raymarchrenderer_tpu.core.vecmath import Vec3
-from raymarchrenderer_tpu.render import mega
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.integrator import render_sample
-from raymarchrenderer_tpu.render.raygen import eye_vec, pixel_grid, primary_rays
-from raymarchrenderer_tpu.scene.builtin import cornell, sphere_on_floor
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.core.rng import RNGStream
+from raymarchrenderer.core.vecmath import Vec3
+from raymarchrenderer.render import mega
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.integrator import render_sample
+from raymarchrenderer.render.raygen import eye_vec, pixel_grid, primary_rays
+from raymarchrenderer.scene.builtin import cornell, sphere_on_floor
 
 
 def _mega_sample(scene, params, cfg, corners, sample, shade_gate=1.0,
@@ -48,8 +48,8 @@ def test_mega_bitwise_matches_oracle(sample):
 def test_mega_spectral_bitwise_matches_oracle():
     """Spectral megakernel (per-lane bounces + in-loop regen) == the gen-3
     wavefront oracle, bitwise — same RNG slots per (pixel, sample, bounce)."""
-    from raymarchrenderer_tpu.render.raygen import pixel_grid
-    from raymarchrenderer_tpu.render.spectral_integrator import (
+    from raymarchrenderer.render.raygen import pixel_grid
+    from raymarchrenderer.render.spectral_integrator import (
         render_sample_spectral, spectral_demo)
     scene, params, mats = spectral_demo()
     cfg = CFG.replace(max_bounces=4)
@@ -115,8 +115,8 @@ def test_mega_rr_bitwise_matches_oracle(n_samples):
     """Russian roulette in the megakernel (`RayMarch2.glsl:480-501`): the
     kill/compensate draw is keyed exactly like the oracle's
     (rng.fork(13) at the lane's bounce index), so the result is bitwise
-    the oracle's per-sample sum — no silent estimator drift when
-    mode="mega" routes an RR-enabled config to the fast path."""
+    the oracle's per-sample sum — no silent estimator drift when the
+    kernel renders an RR-enabled config."""
     scene = cornell()  # enclosed: paths stay alive deep enough for RR
     params = scene.init_params()
     corners = Camera(eye=(0, 2, 5.4), direction=(0, 0, -1),
@@ -155,7 +155,7 @@ class TestMegaNEE:
         np.testing.assert_allclose(a, b, rtol=5e-3, atol=1e-3)
 
     def _two_light_scene(self):
-        from raymarchrenderer_tpu.scene.builtin import SceneBuilder
+        from raymarchrenderer.scene.builtin import SceneBuilder
         b = SceneBuilder()
         m = b.diffuse([0.6, 0.5, 0.4])
         g = b.glossy([0.8, 0.8, 0.8], 0.2)
@@ -169,7 +169,7 @@ class TestMegaNEE:
 
     @pytest.mark.parametrize("n_samples", [1, 2])
     def test_single_light_matches_oracle(self, n_samples):
-        from raymarchrenderer_tpu.scene.builtin import csg_demo
+        from raymarchrenderer.scene.builtin import csg_demo
         scene = csg_demo()
         params = scene.init_params()
         corners = Camera(aspect=1.0).corner_rays_flat()
@@ -210,7 +210,7 @@ class TestMegaNEE:
     def test_nee_with_rr_matches_oracle(self):
         """RR kill preserves already-banked NEE radiance (the oracle's
         `extra` survives the kill) — combined estimator stays bitwise."""
-        from raymarchrenderer_tpu.scene.builtin import csg_demo
+        from raymarchrenderer.scene.builtin import csg_demo
         scene = csg_demo()
         params = scene.init_params()
         cfg = CFG.replace(rr_start_bounce=1, rr_min_prob=0.05)
@@ -226,7 +226,7 @@ class TestMegaNEE:
         self._close(o, m)
 
     def test_nee_gate_and_unroll_invariant(self):
-        from raymarchrenderer_tpu.scene.builtin import csg_demo
+        from raymarchrenderer.scene.builtin import csg_demo
         scene = csg_demo()
         params = scene.init_params()
         corners = Camera(aspect=1.0).corner_rays_flat()
@@ -246,8 +246,8 @@ def test_mega_dispersion_with_nee_matches_oracle():
     lane's path counter enumerates (sample, channel) and each hit detours
     through the in-loop shadow chain — same keying as the oracle tracing
     three one-hot channels with NEE (tolerance per TestMegaNEE)."""
-    from raymarchrenderer_tpu.render.integrator import render_sample
-    from raymarchrenderer_tpu.scene.builtin import csg_demo
+    from raymarchrenderer.render.integrator import render_sample
+    from raymarchrenderer.scene.builtin import csg_demo
     scene = csg_demo()
     params = scene.init_params()
     cfg = CFG.replace(separate_channels=True, max_bounces=4)
@@ -300,7 +300,7 @@ class TestRound4ScheduleKnobs:
         assert (np.abs(out - base) > 1e-4).mean() < 1e-3
 
     def test_nee_cadence_bitwise(self):
-        from raymarchrenderer_tpu.scene.builtin import SceneBuilder
+        from raymarchrenderer.scene.builtin import SceneBuilder
         b = SceneBuilder()
         m = b.diffuse([0.7, 0.7, 0.7])
         b.sphere(m, [0, 1, 0], 1.0)
@@ -324,7 +324,7 @@ class TestRound4ScheduleKnobs:
         — a deterministic darkening of direct light, not noise.  The open
         scene in test_nee_cadence_bitwise cannot catch this; an enclosed
         room with the ceiling just past the light does."""
-        from raymarchrenderer_tpu.scene.builtin import SceneBuilder
+        from raymarchrenderer.scene.builtin import SceneBuilder
         b = SceneBuilder()
         m = b.diffuse([0.7, 0.7, 0.7])
         b.box(m, [0, -0.05, 0], [8, 0.05, 8])     # floor
@@ -353,8 +353,8 @@ class TestRound4ScheduleKnobs:
         assert float(lazy.mean()) >= float(base.mean()) - 1e-4
 
     def test_spectral_cadence_bitwise(self):
-        from raymarchrenderer_tpu.render.raygen import pixel_grid as pg
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.render.raygen import pixel_grid as pg
+        from raymarchrenderer.render.spectral_integrator import (
             spectral_demo)
         scene, params, mats = spectral_demo()
         cfg = CFG.replace(max_bounces=4)
@@ -376,7 +376,7 @@ class TestRound4ScheduleKnobs:
         """lazy_miss now COMPOSES with recording (round 5b — see
         test_record_banks_bitwise_under_lazy_miss); the occupancy
         counters remain render-only."""
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.render.spectral_integrator import (
             band_table)
         scene = sphere_on_floor()
         params = scene.init_params()
@@ -394,7 +394,7 @@ def test_record_banks_bitwise_under_cadence():
     kernel is 73% of the train step) — it is pure scheduling, so the
     banked (t, mid, hit[, sd]) planes must be ARRAY-equal to the
     strict-schedule recording."""
-    from raymarchrenderer_tpu.scene.builtin import csg_demo
+    from raymarchrenderer.scene.builtin import csg_demo
     scene = csg_demo()
     params = scene.init_params()
     cfg = CFG.replace(max_bounces=4)
@@ -431,9 +431,9 @@ def test_record_banks_bitwise_under_lazy_miss():
     ARRAY-equal to the strict-schedule recording — RGB (with NEE: the
     shadow sd bank stays strict-equal here because the scene is open) and
     spectral."""
-    from raymarchrenderer_tpu.render.spectral_integrator import (
+    from raymarchrenderer.render.spectral_integrator import (
         band_table)
-    from raymarchrenderer_tpu.scene.builtin import csg_demo
+    from raymarchrenderer.scene.builtin import csg_demo
     scene = csg_demo()
     params = scene.init_params()
     # small unroll keeps the four CPU compiles fast while still crossing

@@ -6,9 +6,9 @@ import tempfile
 import numpy as np
 import pytest
 
-from raymarchrenderer_tpu.io import native_bindings
-from raymarchrenderer_tpu.render import scheduler_native
-from raymarchrenderer_tpu.render.tiles import spiral_tiles, spiral_tiles_py
+from raymarchrenderer.io import native_bindings
+from raymarchrenderer.render import scheduler_native
+from raymarchrenderer.render.tiles import spiral_tiles, spiral_tiles_py
 
 NATIVE = native_bindings.available()
 SCHED = scheduler_native.available()
@@ -53,7 +53,7 @@ class TestNativeScheduler:
 @pytest.mark.skipif(not NATIVE, reason="native encoder not built")
 class TestNativeEncoder:
     def test_srgb_matches_python(self):
-        from raymarchrenderer_tpu.io.image import _linear_to_srgb_np
+        from raymarchrenderer.io.image import _linear_to_srgb_np
         rng = np.random.default_rng(0)
         lin = rng.random((16, 16, 3), np.float32) * 1.2 - 0.1
         nat = native_bindings.linear_to_srgb_u8(lin.astype(np.float32))
@@ -63,7 +63,7 @@ class TestNativeEncoder:
         assert np.abs(nat.astype(int) - ref.astype(int)).max() <= 1
 
     def test_bmp_roundtrip_layout(self):
-        from raymarchrenderer_tpu.io.image import save_bmp
+        from raymarchrenderer.io.image import save_bmp
         img = np.random.default_rng(1).random((8, 10, 3)).astype(np.float32)
         with tempfile.TemporaryDirectory() as d:
             p = os.path.join(d, "x.bmp")

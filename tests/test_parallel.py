@@ -7,13 +7,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.parallel.sharding import (
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.parallel.sharding import (
     ShardConfig, auto_shard, gather_image, make_mesh, render_sharded,
 )
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.integrator import render
-from raymarchrenderer_tpu.scene import builtin
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.integrator import render
+from raymarchrenderer.scene import builtin
 
 CFG = RenderConfig(width=16, height=16, max_steps=32, max_bounces=2,
                    max_dist=100.0)
@@ -64,11 +64,11 @@ class TestFusedSharded:
         render (interpret mode on the CPU mesh)."""
         import numpy as np
 
-        from raymarchrenderer_tpu.core.camera import Camera
-        from raymarchrenderer_tpu.parallel.sharding import (
+        from raymarchrenderer.core.camera import Camera
+        from raymarchrenderer.parallel.sharding import (
             ShardConfig, make_mesh, render_sharded)
-        from raymarchrenderer_tpu.render.config import RenderConfig
-        from raymarchrenderer_tpu.scene import builtin
+        from raymarchrenderer.render.config import RenderConfig
+        from raymarchrenderer.scene import builtin
         scene = builtin.sphere_on_floor()
         params = scene.init_params()
         cfg = RenderConfig(width=128, height=32, max_steps=48,
@@ -78,7 +78,7 @@ class TestFusedSharded:
         a = np.asarray(render_sharded(scene, params, cfg, corners, mesh,
                                       spp=4, impl="oracle"))
         b = np.asarray(render_sharded(scene, params, cfg, corners, mesh,
-                                      spp=4, impl="fused", interpret=True))
+                                      spp=4, impl="triton", interpret=True))
         assert a.shape == b.shape == (32, 128, 3)
         # bitwise: the megakernel banks each lane's samples in index order
         # (same order as the oracle's fori_loop) and normalize=False defers
@@ -86,15 +86,16 @@ class TestFusedSharded:
         np.testing.assert_array_equal(a, b)
 
     def test_fused_train_step_matches_oracle(self):
-        """The fused differentiable march (Pallas forward + implicit
-        adjoint) yields the bitwise-identical sharded train step."""
+        """The recorded differentiable forward (one recording launch +
+        implicit adjoint) yields the bitwise-identical sharded train
+        step."""
         import numpy as np
 
-        from raymarchrenderer_tpu.core.camera import Camera
-        from raymarchrenderer_tpu.parallel.sharding import (
+        from raymarchrenderer.core.camera import Camera
+        from raymarchrenderer.parallel.sharding import (
             ShardConfig, make_mesh, train_step_sharded)
-        from raymarchrenderer_tpu.render.config import RenderConfig
-        from raymarchrenderer_tpu.scene import builtin
+        from raymarchrenderer.render.config import RenderConfig
+        from raymarchrenderer.scene import builtin
         import jax
         import jax.numpy as jnp
         scene = builtin.sphere_on_floor()
@@ -109,7 +110,8 @@ class TestFusedSharded:
                                         mesh, spp=4, lr=1e-3)
             l1, p1 = train_step_sharded(scene, params, cfg, corners, target,
                                         mesh, spp=4, lr=1e-3,
-                                        march_impl="fused", interpret=True)
+                                        march_impl="recorded",
+                                        interpret=True)
         assert float(l0) == float(l1)
         for a, b in zip(jax.tree.leaves(p0), jax.tree.leaves(p1)):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
@@ -119,7 +121,7 @@ class TestMultihost:
     def test_single_process_helpers(self):
         import numpy as np
 
-        from raymarchrenderer_tpu.parallel import multihost
+        from raymarchrenderer.parallel import multihost
         assert multihost.init() is False  # single process
         assert multihost.is_primary()
         x = np.arange(12.0).reshape(3, 4)
@@ -132,10 +134,10 @@ class TestSpectralSharded:
     def test_spectral_sharded_matches_unsharded(self):
         """`render_sharded_spectral` (per-chip patch origin + normalize=
         False merge) equals the unsharded spectral megakernel bitwise."""
-        from raymarchrenderer_tpu.kernels.march import render_fused_spectral
-        from raymarchrenderer_tpu.parallel.sharding import (
+        from raymarchrenderer.kernels.march import render_fused_spectral
+        from raymarchrenderer.parallel.sharding import (
             ShardConfig, make_mesh, render_sharded_spectral)
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.render.spectral_integrator import (
             spectral_demo)
         scene, params, mats = spectral_demo()
         cfg = RenderConfig(width=128, height=32, max_steps=48,
@@ -161,7 +163,7 @@ class TestRecordedSharded:
         chip + XLA shade replay) yields the same sharded train step as the
         oracle path (bitwise on the loss; grads/params to a few ulp from
         unrolled-vs-fori backward association)."""
-        from raymarchrenderer_tpu.parallel.sharding import (
+        from raymarchrenderer.parallel.sharding import (
             ShardConfig, make_mesh, train_step_sharded)
         scene = builtin.sphere_on_floor()
         params = scene.init_params()
@@ -216,7 +218,7 @@ class TestPaddedSharding:
     def test_fused_rows_and_spp_pad(self):
         """Fused megakernel path with BOTH axes non-divisible (interpret
         mode on the CPU mesh) equals the padded oracle path."""
-        from raymarchrenderer_tpu.scene import builtin as bi
+        from raymarchrenderer.scene import builtin as bi
         scene = bi.sphere_on_floor()
         params = scene.init_params()
         cfg = RenderConfig(width=128, height=23, max_steps=48,
@@ -226,7 +228,7 @@ class TestPaddedSharding:
         a = np.asarray(render_sharded(scene, params, cfg, corners, mesh,
                                       spp=3, impl="oracle"))
         b = np.asarray(render_sharded(scene, params, cfg, corners, mesh,
-                                      spp=3, impl="fused", interpret=True))
+                                      spp=3, impl="triton", interpret=True))
         assert a.shape == b.shape == (23, 128, 3)
         np.testing.assert_array_equal(a, b)
         ref, _ = render(scene, params, cfg, corners, spp=3)

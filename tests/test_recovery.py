@@ -7,13 +7,13 @@ shard yields the exact mean over the samples that DID arrive.
 import numpy as np
 import pytest
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.parallel.recovery import (ElasticResult,
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.parallel.recovery import (ElasticResult,
                                                     oracle_shard_fn,
                                                     render_elastic)
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.integrator import render
-from raymarchrenderer_tpu.scene.builtin import sphere_on_floor
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.integrator import render
+from raymarchrenderer.scene.builtin import sphere_on_floor
 
 
 @pytest.fixture(scope="module")
@@ -79,7 +79,7 @@ def test_permanent_failure_drops_shard_unbiased(setup):
 
 def test_fused_shard_fn_matches_oracle_shards(setup):
     scene, params, cfg, corners = setup
-    from raymarchrenderer_tpu.parallel.recovery import fused_shard_fn
+    from raymarchrenderer.parallel.recovery import fused_shard_fn
     run_o = oracle_shard_fn(scene, params, cfg, corners)
     run_f = fused_shard_fn(scene, params, cfg, corners, interpret=True)
     a = render_elastic(run_o, cfg.height, cfg.width, spp=4, shard_spp=2)

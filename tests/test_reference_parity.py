@@ -47,11 +47,11 @@ def _centroid(u8, chan):
 def rendered_pair():
     import jax.numpy as jnp
 
-    from raymarchrenderer_tpu.core.camera import Camera
-    from raymarchrenderer_tpu.io.image import load_bmp, to_srgb_u8
-    from raymarchrenderer_tpu.render.config import RenderConfig
-    from raymarchrenderer_tpu.render.integrator import render
-    from raymarchrenderer_tpu.scene.graph import load_scene
+    from raymarchrenderer.core.camera import Camera
+    from raymarchrenderer.io.image import load_bmp, to_srgb_u8
+    from raymarchrenderer.render.config import RenderConfig
+    from raymarchrenderer.render.integrator import render
+    from raymarchrenderer.scene.graph import load_scene
 
     ref = load_bmp(REF_BMP)
     H, W = ref.shape[:2]
@@ -122,18 +122,18 @@ class TestReferenceParity:
 
 
 def test_packaged_parity_fallback(monkeypatch, tmp_path, capsys):
-    """Round-5: the `parity` verb must work from a WHEEL install — with
+    """The `parity` verb must work from a WHEEL install — with
     the reference mount absent, the packaged x4 goldens + the geometric
     parity twin scene drive the same gates.  Low-spp run: asserts the
     packaged pipeline and the geometry gates (luma floors need the
-    converged on-chip run, output/reference_parity_tpu.json).
+    converged high-spp run).
 
     Deliberately NOT @needs_reference: the mounts are monkeypatched away,
     and environments without the mount are exactly where this fallback is
     the live code path (review finding: the old gate skipped it there)."""
     import json
 
-    from raymarchrenderer_tpu.utils import parity
+    from raymarchrenderer.utils import parity
 
     monkeypatch.setattr(parity, "REF_DIR", "/nonexistent")
     monkeypatch.setattr(parity, "REF_SCENE", "/nonexistent/x.scene")

@@ -11,14 +11,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.core.rng import RNGStream
-from raymarchrenderer_tpu.core.vecmath import Vec3
-from raymarchrenderer_tpu.render import mega
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.integrator import march, render_sample
-from raymarchrenderer_tpu.render.raygen import eye_vec, pixel_grid, primary_rays
-from raymarchrenderer_tpu.scene.builtin import cornell, csg_demo, sphere_on_floor
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.core.rng import RNGStream
+from raymarchrenderer.core.vecmath import Vec3
+from raymarchrenderer.render import mega
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.integrator import march, render_sample
+from raymarchrenderer.render.raygen import eye_vec, pixel_grid, primary_rays
+from raymarchrenderer.scene.builtin import cornell, csg_demo, sphere_on_floor
 
 CFG = RenderConfig(width=48, height=48, max_steps=256, max_bounces=6,
                    max_dist=100.0)
@@ -75,7 +75,7 @@ def test_relaxed_mega_matches_relaxed_oracle():
 def test_tetrahedral_normals_match_central_diff():
     """4-tap tetrahedron normals agree with the 6-tap central difference to
     O(ε) on smooth SDF regions."""
-    from raymarchrenderer_tpu.render.integrator import get_normal
+    from raymarchrenderer.render.integrator import get_normal
 
     scene = sphere_on_floor()
     params, o, d, ones = _primary(scene, CFG)
@@ -91,7 +91,7 @@ def test_grad_normals_match_central_diff():
     """normal_taps=0 (exact ∇map via one vjp sweep) agrees with the 6-tap
     central difference to O(ε²) at hit points — it is the stencils' ε→0
     limit, at ~2 map-eval cost inside the shade pass."""
-    from raymarchrenderer_tpu.render.integrator import get_normal
+    from raymarchrenderer.render.integrator import get_normal
 
     scene = sphere_on_floor()
     params, o, d, ones = _primary(scene, CFG)
@@ -109,7 +109,7 @@ def test_grad_normals_match_central_diff():
 def test_grad_normals_through_fused_kernel():
     """The vjp-based normal legalizes inside the Pallas kernel (interpret
     backend) and renders a finite image close to the 4-tap one."""
-    from raymarchrenderer_tpu.kernels.march import render_fused
+    from raymarchrenderer.kernels.march import render_fused
 
     scene = sphere_on_floor()
     params = scene.init_params()
@@ -131,7 +131,7 @@ def test_relaxed_glass_interior_march():
     """Inside-marching (dist_mult = -1, refraction interiors) under
     relaxation: the |signed distance| unbounding balls stay valid, so the
     render agrees with the classic march."""
-    from raymarchrenderer_tpu.scene.builtin import glass_demo
+    from raymarchrenderer.scene.builtin import glass_demo
 
     scene = glass_demo()
     params = scene.init_params()

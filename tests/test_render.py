@@ -3,14 +3,14 @@ equivalence, spiral scheduler parity, spectral mode, progressive resume."""
 import jax.numpy as jnp
 import numpy as np
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.integrator import render, render_sample
-from raymarchrenderer_tpu.render.spectral_integrator import (
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.integrator import render, render_sample
+from raymarchrenderer.render.spectral_integrator import (
     render_spectral, spectral_demo,
 )
-from raymarchrenderer_tpu.render.tiles import ProgressiveRenderer, spiral_tiles
-from raymarchrenderer_tpu.scene import builtin
+from raymarchrenderer.render.tiles import ProgressiveRenderer, spiral_tiles
+from raymarchrenderer.scene import builtin
 
 CFG = RenderConfig(width=64, height=64, spp=2, max_steps=96, max_bounces=4,
                    max_dist=100.0)
@@ -175,9 +175,9 @@ class TestSpectral:
 
     def test_wavelength_bins(self):
         scene, params, mats = spectral_demo()
-        from raymarchrenderer_tpu.core.vecmath import Vec3
-        from raymarchrenderer_tpu.render.spectral_integrator import trace_spectral
-        from raymarchrenderer_tpu.render.config import RenderConfig
+        from raymarchrenderer.core.vecmath import Vec3
+        from raymarchrenderer.render.spectral_integrator import trace_spectral
+        from raymarchrenderer.render.config import RenderConfig
         cfg = RenderConfig(width=8, height=8, max_steps=64, max_bounces=4,
                            max_dist=100.0)
         shape = (8, 8)

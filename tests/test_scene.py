@@ -7,14 +7,15 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raymarchrenderer_tpu.core.rng import RNGStream
-from raymarchrenderer_tpu.core.vecmath import Vec3
-from raymarchrenderer_tpu.scene import builtin, load_scene, loads_scene
-from raymarchrenderer_tpu.scene.nodes import ShadeCtx
+from raymarchrenderer.core.rng import RNGStream
+from raymarchrenderer.core.vecmath import Vec3
+from raymarchrenderer.scene import builtin, load_scene, loads_scene
+from raymarchrenderer.scene.nodes import ShadeCtx
 
-REF_SCENES = sorted(glob.glob(
-    "/root/reference/RayMarch Renderer/data/scenes/*.scene"))
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the reference's scene files as ported into the repo (both formats)
+REF_SCENES = sorted(glob.glob(os.path.join(REPO, "data", "scenes",
+                                           "*.scene")))
 
 
 def _vec(shape, x, y, z):
@@ -234,9 +235,9 @@ class TestShippedScenes:
         import jax.numpy as jnp
         import numpy as np
 
-        from raymarchrenderer_tpu.core.camera import Camera
-        from raymarchrenderer_tpu.render.config import RenderConfig
-        from raymarchrenderer_tpu.render.integrator import render_sample
+        from raymarchrenderer.core.camera import Camera
+        from raymarchrenderer.render.config import RenderConfig
+        from raymarchrenderer.render.integrator import render_sample
         ref = [p for p in REF_SCENES if p.endswith("material_test.scene")]
         if not ref:
             import pytest
@@ -262,7 +263,7 @@ class TestSpectralSceneFormat:
         """`data/scenes/spectral.scene` loads to the exact `spectral_demo()`
         scene: identical static structure, identical parameter pytree,
         identical band table."""
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.render.spectral_integrator import (
             band_table, spectral_demo)
         demo_scene, demo_params, demo_mats = spectral_demo()
         scene = load_scene(os.path.join(REPO, "data/scenes/spectral.scene"))
@@ -298,9 +299,9 @@ class TestSpectralSceneFormat:
         """The loaded spectral scene runs the gen-3 integrator end to end and
         matches the demo render exactly (same scene -> same RNG -> same
         image)."""
-        from raymarchrenderer_tpu.core.camera import Camera
-        from raymarchrenderer_tpu.render.config import RenderConfig
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.core.camera import Camera
+        from raymarchrenderer.render.config import RenderConfig
+        from raymarchrenderer.render.spectral_integrator import (
             band_table, render_spectral, spectral_demo)
         scene = load_scene(os.path.join(REPO, "data/scenes/spectral.scene"))
         cfg = RenderConfig(width=16, height=16, max_steps=48, max_bounces=3,
@@ -322,7 +323,7 @@ def test_env_exact_quad_table_bitwise():
     import jax.numpy as jnp
     import numpy as np
 
-    from raymarchrenderer_tpu.scene import builtin
+    from raymarchrenderer.scene import builtin
 
     rng = np.random.RandomState(3)
     img = rng.uniform(0.0, 2.0, (8, 16, 3)).astype(np.float32)

@@ -1,16 +1,16 @@
 """SH environment sky (core/sh.py + Scene.has_sh_env): the gather-free
-TPU env representation used for lighting recovery (tools/fit_reference)."""
+env representation used for lighting recovery (tools/fit_reference)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.core.sh import (bake_latlong, constant_coeffs,
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.core.sh import (bake_latlong, constant_coeffs,
                                           latlong_dirs, sh_eval)
-from raymarchrenderer_tpu.core.vecmath import Vec3
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.integrator import render_sample
-from raymarchrenderer_tpu.scene.graph import loads_scene
+from raymarchrenderer.core.vecmath import Vec3
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.integrator import render_sample
+from raymarchrenderer.scene.graph import loads_scene
 
 _SCENE = """{
  "materials": [

@@ -20,13 +20,13 @@ import pytest
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir))
 
-from raymarchrenderer_tpu.core.camera import Camera  # noqa: E402
-from raymarchrenderer_tpu.core.rng import RNGStream  # noqa: E402
-from raymarchrenderer_tpu.core.vecmath import Vec3  # noqa: E402
-from raymarchrenderer_tpu.render.config import RenderConfig  # noqa: E402
-from raymarchrenderer_tpu.render.integrator import render  # noqa: E402
-from raymarchrenderer_tpu.scene.builtin import SceneBuilder  # noqa: E402
-from raymarchrenderer_tpu.scene.nodes import (  # noqa: E402
+from raymarchrenderer.core.camera import Camera  # noqa: E402
+from raymarchrenderer.core.rng import RNGStream  # noqa: E402
+from raymarchrenderer.core.vecmath import Vec3  # noqa: E402
+from raymarchrenderer.render.config import RenderConfig  # noqa: E402
+from raymarchrenderer.render.integrator import render  # noqa: E402
+from raymarchrenderer.scene.builtin import SceneBuilder  # noqa: E402
+from raymarchrenderer.scene.nodes import (  # noqa: E402
     ShadeCtx, shader_volume_scatter)
 
 
@@ -35,7 +35,7 @@ class TestRussianRoulette:
         """Converged means agree RR-on vs RR-off (`RayMarch2.glsl:488-501`:
         survivors carry 1/p throughput, casualties nothing — the estimator
         expectation is unchanged; only the variance moves)."""
-        from raymarchrenderer_tpu.scene.builtin import cornell
+        from raymarchrenderer.scene.builtin import cornell
         scene = cornell()  # enclosed: paths stay active deep enough for RR
         params = scene.init_params()
         corners = Camera(eye=(0, 2, 5.4), direction=(0, 0, -1),
@@ -61,7 +61,7 @@ class TestRussianRoulette:
         """With an early, brutal roulette in an ENCLOSED scene (paths
         can't escape to the sky, so they stay active past the start
         bounce) most pixels must see at least one killed path."""
-        from raymarchrenderer_tpu.scene.builtin import cornell
+        from raymarchrenderer.scene.builtin import cornell
         scene = cornell()
         params = scene.init_params()
         cam = Camera(eye=(0, 2, 5.4), direction=(0, 0, -1), aspect=1.0)
@@ -201,7 +201,7 @@ class TestMarchInstrumentation:
     march."""
 
     def _march_setup(self, relax):
-        from raymarchrenderer_tpu.render.integrator import march
+        from raymarchrenderer.render.integrator import march
         scene = SceneBuilder()
         m = scene.diffuse([0.5, 0.5, 0.5])
         scene.sphere(m, [0, 0, 5], 1.0)
@@ -268,8 +268,8 @@ class TestFusedRussianRoulette:
         oracle — is tests/test_mega.py::test_mega_rr_bitwise_matches_
         oracle; this asserts the estimator property end-to-end through
         render_fused itself.)"""
-        from raymarchrenderer_tpu.kernels.march import render_fused
-        from raymarchrenderer_tpu.scene.builtin import cornell
+        from raymarchrenderer.kernels.march import render_fused
+        from raymarchrenderer.scene.builtin import cornell
         scene = cornell()
         params = scene.init_params()
         corners = Camera(eye=(0, 2, 5.4), direction=(0, 0, -1),

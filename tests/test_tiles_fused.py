@@ -1,5 +1,5 @@
 """Megakernel under the interactive tile driver (round-4 directive):
-`ProgressiveRenderer(impl="fused")` drives `render_fused_patch` per spiral
+`ProgressiveRenderer(impl="triton")` drives `render_fused_patch` per spiral
 tile and must be BITWISE-equal to the full-frame fused render — the RNG is
 keyed on absolute pixel coords and every per-lane value is
 schedule-invariant, so the tile decomposition cannot touch the numbers.
@@ -7,11 +7,11 @@ schedule-invariant, so the tile decomposition cannot touch the numbers.
 import jax.numpy as jnp
 import numpy as np
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.kernels.march import render_fused
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.render.tiles import ProgressiveRenderer
-from raymarchrenderer_tpu.scene.builtin import SceneBuilder, sphere_on_floor
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.kernels.march import render_fused
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.render.tiles import ProgressiveRenderer
+from raymarchrenderer.scene.builtin import SceneBuilder, sphere_on_floor
 
 CFG = RenderConfig(width=256, height=64, spp=2, max_steps=96,
                    max_bounces=3, max_dist=100.0,
@@ -25,7 +25,7 @@ def _corners():
 def test_fused_tiles_bitwise_equal_full_frame():
     scene = sphere_on_floor()
     params = scene.init_params()
-    pr = ProgressiveRenderer(scene, params, CFG, _corners(), impl="fused",
+    pr = ProgressiveRenderer(scene, params, CFG, _corners(), impl="triton",
                              interpret=True)
     tiled = np.asarray(pr.render_pass(spp=2))
     full = np.asarray(render_fused(scene, params, CFG, _corners(),
@@ -44,7 +44,7 @@ def test_fused_tiles_nee():
     b.light([3, 6, -3], 40.0, 0.5)
     scene = b.build()
     params = scene.init_params()
-    pr = ProgressiveRenderer(scene, params, CFG, _corners(), impl="fused",
+    pr = ProgressiveRenderer(scene, params, CFG, _corners(), impl="triton",
                              direct_light=True, interpret=True)
     tiled = np.asarray(pr.render_pass(spp=1))
     full = np.asarray(render_fused(scene, params, CFG, _corners(),
@@ -59,7 +59,7 @@ def test_fused_endless_matches_oracle_endless():
     compilation tolerance (same running-mean bookkeeping)."""
     scene = sphere_on_floor()
     params = scene.init_params()
-    a = ProgressiveRenderer(scene, params, CFG, _corners(), impl="fused",
+    a = ProgressiveRenderer(scene, params, CFG, _corners(), impl="triton",
                             interpret=True)
     b = ProgressiveRenderer(scene, params, CFG, _corners(), impl="oracle")
     ia = np.asarray(a.endless_passes(2))

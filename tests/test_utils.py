@@ -6,12 +6,12 @@ import tempfile
 import jax.numpy as jnp
 import numpy as np
 
-from raymarchrenderer_tpu.core.camera import Camera
-from raymarchrenderer_tpu.render.config import RenderConfig
-from raymarchrenderer_tpu.scene import builtin
-from raymarchrenderer_tpu.utils import (MetricsLogger, checked_render_sample,
+from raymarchrenderer.core.camera import Camera
+from raymarchrenderer.render.config import RenderConfig
+from raymarchrenderer.scene import builtin
+from raymarchrenderer.utils import (MetricsLogger, checked_render_sample,
                                         instrumented_sample, timed_block)
-from raymarchrenderer_tpu.utils.profiling import compile_and_steady
+from raymarchrenderer.utils.profiling import compile_and_steady
 
 CFG = RenderConfig(width=32, height=32, max_steps=64, max_bounces=2,
                    max_dist=100.0)
@@ -36,7 +36,7 @@ class TestMetrics:
         assert stats.rays_per_s > 0
 
     def test_instrumented_matches_plain(self):
-        from raymarchrenderer_tpu.render.integrator import render_sample
+        from raymarchrenderer.render.integrator import render_sample
         scene, params, corners = _setup()
         color, _ = instrumented_sample(scene, params, CFG, corners,
                                        jnp.uint32(2))
@@ -64,14 +64,14 @@ class TestProfiling:
         scene, params, corners = _setup()
         out = {}
         with timed_block("render", out):
-            from raymarchrenderer_tpu.render.integrator import render_sample
+            from raymarchrenderer.render.integrator import render_sample
             render_sample(scene, params, CFG, corners, jnp.uint32(0))
         assert out["render"] > 0
 
     def test_compile_and_steady(self):
         import jax
 
-        from raymarchrenderer_tpu.render.integrator import render_sample
+        from raymarchrenderer.render.integrator import render_sample
         scene, params, corners = _setup()
         fn = jax.jit(lambda p: render_sample(scene, p, CFG, corners,
                                              jnp.uint32(0)).stack(-1))

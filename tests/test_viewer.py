@@ -7,7 +7,7 @@ import urllib.request
 
 import pytest
 
-from raymarchrenderer_tpu.app.viewer import ViewerState, make_server
+from raymarchrenderer.app.viewer import ViewerState, make_server
 
 
 @pytest.fixture()
@@ -103,7 +103,7 @@ def test_camera_ops_restart_render(server):
     uses the NEW pose, so the image changes."""
     import numpy as np
 
-    from raymarchrenderer_tpu.io.image import load_png_bytes
+    from raymarchrenderer.io.image import load_png_bytes
 
     base, state = server
     req = {"scene": "sphere_on_floor", "spp": 2, "width": 32, "height": 32,

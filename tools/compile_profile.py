@@ -25,9 +25,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
-from raymarchrenderer_tpu.core.camera import Camera  # noqa: E402
-from raymarchrenderer_tpu.render.config import RenderConfig  # noqa: E402
-from raymarchrenderer_tpu.scene import builtin  # noqa: E402
+from raymarchrenderer.core.camera import Camera  # noqa: E402
+from raymarchrenderer.render.config import RenderConfig  # noqa: E402
+from raymarchrenderer.scene import builtin  # noqa: E402
 
 
 def scene_with_lights(n_lights):
@@ -43,7 +43,7 @@ def scene_with_lights(n_lights):
 def time_compile(B, S, L, spp=None):
     """Wall time of trace+lower+compile (not execution) for one recorded
     train step on a fresh (tile=4, spp=2) CPU mesh."""
-    from raymarchrenderer_tpu.parallel.sharding import (ShardConfig,
+    from raymarchrenderer.parallel.sharding import (ShardConfig,
                                                         _train_step_fn,
                                                         make_mesh)
     scene = scene_with_lights(L)

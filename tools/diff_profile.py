@@ -1,21 +1,19 @@
-"""Ablation timing for the differentiable-forward gap (BASELINE config 5).
+"""Ablation timing for the differentiable forward (BASELINE config 5) on
+the GPU kernel route.
 
 The train step's cost structure (1024², spp 4, 4 bounces by default):
 
   A. megakernel forward         — the non-diff speed of light
-  B. bare fused marches         — 4 sequential full-plane march launches
-                                  over the batched (spp·H, W) planes, all
-                                  lanes active (upper-bounds the march
-                                  share of the wavefront path)
-  C. wavefront forward, non-diff— trace_rgb(march_impl=fused): XLA shade
-                                  chain + per-bounce fused march
-  D. diff forward               — C + reparameterized-march gradients
-                                  traced (surrogate ∇f evals), no grad
+  B. recording kernel           — ONE launch banks every march residual
+                                  (`kernels.record.trace_record_fused`)
+  D. diff forward               — B + the XLA shade replay with
+                                  reparameterized-march gradients traced
   E. value_and_grad             — D + backward (policy remat: shade
-                                  replay, march DCE'd)
+                                  replay, march never re-run)
 
-C−B ≈ XLA shading cost; D−C ≈ reparam forward cost; E−D ≈ backward cost.
-Prints one JSON line.  Knobs: DP_SIZE, DP_SPP, DP_BOUNCES, DP_TAPS.
+D−B ≈ XLA replay cost; E−D ≈ backward cost.  Prints one JSON line.
+Knobs: DP_SIZE, DP_SPP, DP_BOUNCES, DP_TAPS.  Refuses to run where the
+kernel route is not available (kernels/route.py).
 """
 from __future__ import annotations
 
@@ -46,16 +44,16 @@ def main():
     bounces = int(os.environ.get("DP_BOUNCES", "4"))
     taps = int(os.environ.get("DP_TAPS", "4"))
 
-    from raymarchrenderer_tpu.core.camera import Camera
-    from raymarchrenderer_tpu.core.rng import RNGStream
-    from raymarchrenderer_tpu.core.vecmath import Vec3
-    from raymarchrenderer_tpu.kernels.march import march_fused, render_fused
-    from raymarchrenderer_tpu.render.config import RenderConfig
-    from raymarchrenderer_tpu.render.integrator import render_patch_spp
-    from raymarchrenderer_tpu.render.raygen import eye_vec, primary_rays
-    from raymarchrenderer_tpu.scene.builtin import sphere_on_floor
+    from raymarchrenderer.core.camera import Camera
+    from raymarchrenderer.kernels.march import render_fused
+    from raymarchrenderer.kernels.record import trace_record_fused
+    from raymarchrenderer.kernels.route import TRITON, kernel_route
+    from raymarchrenderer.render.config import RenderConfig
+    from raymarchrenderer.render.integrator import render_patch_spp
+    from raymarchrenderer.scene.builtin import sphere_on_floor
 
-    interpret = jax.devices()[0].platform != "tpu"
+    if kernel_route() != TRITON:
+        raise SystemExit("diff_profile times the GPU kernels; no GPU found")
     scene = sphere_on_floor()
     params = scene.init_params()
     cfg = RenderConfig(width=size, height=size, max_bounces=bounces,
@@ -66,72 +64,40 @@ def main():
 
     # A: megakernel
     a_fn = jax.jit(lambda p: render_fused(scene, p, cfg, corners,
-                                          jnp.uint32(0), n_samples=spp,
-                                          interpret=interpret))
+                                          jnp.uint32(0), n_samples=spp))
     t_a, _ = timeit(a_fn, params)
 
-    # B: bare batched marches (bounce-0 planes, all active, x bounces)
-    sh = (spp * size, size)
-    row = jnp.arange(size, dtype=jnp.int32)[None, :, None]
-    col = jnp.arange(size, dtype=jnp.int32)[None, None, :]
-    sid = jnp.arange(spp, dtype=jnp.uint32)[:, None, None]
-    py = jnp.broadcast_to(row, (spp, size, size)).reshape(sh)
-    px = jnp.broadcast_to(col, (spp, size, size)).reshape(sh)
-    sample = jnp.broadcast_to(sid, (spp, size, size)).reshape(sh)
+    # B: the recording kernel alone
+    b_fn = jax.jit(lambda p: trace_record_fused(
+        scene, p, cfg, corners, origin, (size, size), jnp.uint32(0),
+        n_samples=spp)["t"])
+    t_b, _ = timeit(b_fn, params)
 
-    def b_fn(p):
-        rng = RNGStream(cfg.seed, px, py, sample, jnp.uint32(1 << 20))
-        d = primary_rays(corners, px, py, size, size, rng)
-        e = eye_vec(corners)
-        o = Vec3(jnp.broadcast_to(e.x, sh), jnp.broadcast_to(e.y, sh),
-                 jnp.broadcast_to(e.z, sh))
-        ones = jnp.ones(sh, jnp.float32)
-        act = jnp.ones(sh, bool)
-        acc = jnp.zeros(sh, jnp.float32)
-        for _ in range(bounces):
-            t, mid, hit = march_fused(scene, p, cfg, o, d, ones, act,
-                                      interpret=interpret)
-            acc = acc + t
-        return acc
-
-    t_b, _ = timeit(jax.jit(b_fn), params)
-
-    # C: wavefront non-diff (fused march + XLA shade)
-    def c_fn(p):
-        return render_patch_spp(scene, p, cfg, corners, origin,
-                                (size, size), jnp.uint32(0), spp,
-                                march_impl="fused",
-                                interpret=interpret).stack(-1)
-
-    t_c, _ = timeit(jax.jit(c_fn), params)
-
-    # D: diff forward (no grad)
+    # D: diff forward on the recorded marches (no grad)
     def d_fn(p):
         c = render_patch_spp(scene, p, cfg, corners, origin,
                              (size, size), jnp.uint32(0), spp,
-                             differentiable=True, march_impl="fused",
-                             interpret=interpret)
+                             differentiable=True, march_impl="recorded")
         return jnp.mean(c.stack(-1) ** 2)
 
     t_d, _ = timeit(jax.jit(d_fn), params)
 
     # E: full value_and_grad with the march-saving remat policy
-    from raymarchrenderer_tpu.diff.march import march_save_policy
+    from raymarchrenderer.diff.march import march_save_policy
     d_remat = jax.checkpoint(d_fn, policy=march_save_policy())
     t_e, _ = timeit(jax.jit(jax.value_and_grad(d_remat)), params)
 
     rep = {
         "size": size, "spp": spp, "bounces": bounces, "normal_taps": taps,
-        "A_megakernel_s": round(t_a, 4),
-        "B_bare_marches_s": round(t_b, 4),
-        "C_wavefront_fwd_s": round(t_c, 4),
-        "D_diff_fwd_s": round(t_d, 4),
-        "E_value_and_grad_s": round(t_e, 4),
-        "xla_shade_s (C-B)": round(t_c - t_b, 4),
-        "reparam_s (D-C)": round(t_d - t_c, 4),
-        "backward_s (E-D)": round(t_e - t_d, 4),
-        "A_mpix_spp_s": round(mpix_spp / t_a, 2),
-        "E_mpix_spp_s": round(mpix_spp / t_e, 2),
+        "device": jax.devices()[0].device_kind,
+        "A_megakernel_s": t_a,
+        "B_record_kernel_s": t_b,
+        "D_diff_fwd_s": t_d,
+        "E_value_and_grad_s": t_e,
+        "xla_replay_s (D-B)": t_d - t_b,
+        "backward_s (E-D)": t_e - t_d,
+        "A_mpix_spp_s": mpix_spp / t_a,
+        "E_mpix_spp_s": mpix_spp / t_e,
     }
     print(json.dumps(rep))
 

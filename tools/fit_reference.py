@@ -15,12 +15,12 @@ the lighting disagreement):
      gray 0.5, etc).
 
 So we recover what was lost with the framework itself: fit a spherical-
-harmonic sky (`core/sh.py` — the gather-free TPU env representation;
-a learnable texture's gather adjoint is a scatter-add that stalls XLA:TPU
-compilation), jointly with the material constants and the emitter
-placement, by Adam on a tone-mapped L2 against the BMP — marching on the
-fused Pallas kernel with the reparameterized adjoint
-(`march_impl="fused"`), fresh Monte-Carlo samples each step.  Geometry
+harmonic sky (`core/sh.py` — a gather-free env representation whose
+adjoint needs no scatter-add), jointly with the material constants and
+the emitter placement, by Adam on a tone-mapped L2 against the BMP —
+marching on the recording kernel with the reparameterized adjoint
+(`march_impl="recorded"` on the GPU), fresh Monte-Carlo samples each
+step.  Geometry
 (floor/spheres/panel) stays frozen at the scene-file values: the centroid
 checks in reference_parity.py show it already matches the BMP, and the
 point is to recover the *lighting*, not to deform the scene into a
@@ -60,17 +60,19 @@ def main():
     import jax.numpy as jnp
     import optax
 
-    from raymarchrenderer_tpu.core.camera import Camera
-    from raymarchrenderer_tpu.core.sh import bake_latlong, constant_coeffs
-    from raymarchrenderer_tpu.io.image import (load_bmp, save_png,
+    from raymarchrenderer.core.camera import Camera
+    from raymarchrenderer.core.sh import bake_latlong, constant_coeffs
+    from raymarchrenderer.io.image import (load_bmp, save_png,
                                                to_srgb_u8,
                                                _srgb_to_linear_np)
-    from raymarchrenderer_tpu.render.config import RenderConfig
-    from raymarchrenderer_tpu.render.integrator import render_patch_spp
-    from raymarchrenderer_tpu.scene.graph import load_scene
+    from raymarchrenderer.render.config import RenderConfig
+    from raymarchrenderer.render.integrator import render_patch_spp
+    from raymarchrenderer.scene.graph import load_scene
 
+    from raymarchrenderer.kernels.route import TRITON, kernel_route
     platform = jax.devices()[0].platform
-    interpret = platform != "tpu"
+    # the recording kernel on the GPU, the per-bounce XLA march on the CPU
+    march_impl = "recorded" if kernel_route() == TRITON else "oracle"
     f = int(os.environ.get("FIT_SCALE", "5"))
     steps = int(os.environ.get("FIT_STEPS", "600"))
     spp = int(os.environ.get("FIT_SPP", "8"))
@@ -97,8 +99,7 @@ def main():
 
     def render_n(sc, p, s0, n):
         c = render_patch_spp(sc, p, cfg, corners, origin, (h, w),
-                             s0, n, march_impl="fused",
-                             interpret=interpret)
+                             s0, n)
         return c.stack(-1) / jnp.float32(n)
 
     def pearson(img):
@@ -146,7 +147,7 @@ def main():
     def loss_fn(fv, epos, s0):
         c = render_patch_spp(scene, assemble(fv, epos), cfg, corners,
                              origin, (h, w), s0, spp, differentiable=True,
-                             march_impl="fused", interpret=interpret)
+                             march_impl=march_impl)
         img = c.stack(-1) / jnp.float32(spp)
         return jnp.mean((tonemap(img) - t_target) ** 2)
 

@@ -1,7 +1,7 @@
 """Regenerate the PACKAGED parity goldens from the reference mount.
 
 The wheel ships each gated 2015 BMP (`utils.parity.GATED_GOLDENS`)
-x4-box-downscaled as `raymarchrenderer_tpu/data/parity/<name>.npz`
+x4-box-downscaled as `raymarchrenderer/data/parity/<name>.npz`
 (key "image", uint8 sRGB) so the `parity` verb works without the
 source checkout.  The downscale here MUST match `load_golden`'s
 box-mean (reshape-mean-uint8) so a PARITY_SCALE=4 run against the
@@ -17,7 +17,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from raymarchrenderer_tpu.utils import parity
+from raymarchrenderer.utils import parity
 
 
 def main():

@@ -38,7 +38,7 @@ Structure (geometry, camera, floor shading, light transport) is what
 parity can and does mean here.
 
 Writes output/reference_parity.png (side-by-side) and prints one JSON
-line.  Knobs: PARITY_SPP (default 2048 on TPU / 64 elsewhere),
+line.  Knobs: PARITY_SPP (default 2048 on the GPU / 64 on the CPU),
 PARITY_REF (default 2015-07-12_23-07), PARITY_SCALE (default 1 —
 integer downscale factor; the reference BMP is block-averaged and we
 render at the reduced size, for CPU-budget runs).
@@ -57,7 +57,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # package data).  This tool remains the source-checkout entry point: with
 # the reference mount present it gates the FULL-RESOLUTION BMPs, and it
 # adds the camera-fit diagnostic below.
-from raymarchrenderer_tpu.utils.parity import (  # noqa: F401  (re-exports
+from raymarchrenderer.utils.parity import (  # noqa: F401  (re-exports
     GATED_GOLDENS, GOLDEN_DIR, GOLDEN_EYE, REF_DIR, REF_SCENE,    # for the
     channel_bbox, channel_centroid, dist, gate_one, load_golden,  # CI twin
     luma, run_parity, ssim)
@@ -111,7 +111,7 @@ def fit_golden_camera(ref_red, ref_green, w, h):
     docs/reference_parity.md shows no pinhole camera of this family
     reproduces the 2015 anchor layout, so the gates run from the
     hand-estimated look-at-origin pose instead."""
-    from raymarchrenderer_tpu.core.camera import Camera
+    from raymarchrenderer.core.camera import Camera
     best, best_err = None, float("inf")
     aspect = w / h
     for dy in np.linspace(2.6, 5.2, 40):

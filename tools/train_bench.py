@@ -2,18 +2,18 @@
 
 Runs `parallel.sharding.train_step_sharded` — by default on the RECORDED
 differentiable forward (`march_impl="recorded"`: the whole multi-bounce
-march runs as ONE Pallas launch per chip, the XLA side replays only the
+march runs as ONE Pallas launch per card, the XLA side replays only the
 shade chain with the implicit adjoint) — at a full 1024²+ frame on the
-available mesh (1×1 on a single chip; the multi-device sharding of the
-same code path is validated by `__graft_entry__.dryrun_multichip` on an
-8-device mesh), and reports the train-step rate next to the forward-only
+available mesh (1×1 on a single card; the multi-device sharding of the
+same code path is validated by `__graft_entry__.dryrun_multichip` on
+virtual devices), and reports the train-step rate next to the forward-only
 fused render rate so the backward's cost is an honest multiple, not a
 guess.
 
 Knobs: TRAIN_SIZE (default 1024), TRAIN_SPP (default 4), TRAIN_STEPS
 (default 3 timed steps), TRAIN_BOUNCES (default 4 — inverse rendering
 wants short transport; 16-bounce budgets are a forward-render default),
-TRAIN_IMPL (recorded | fused | oracle).
+TRAIN_IMPL (recorded | oracle; recorded needs the GPU kernel route).
 
 Prints one JSON line; `bench.py` stays the driver headline.
 """
@@ -41,15 +41,18 @@ def main():
     impl = os.environ.get("TRAIN_IMPL", "recorded")
     taps = int(os.environ.get("TRAIN_NORMAL_TAPS", "4"))
 
-    from raymarchrenderer_tpu.core.camera import Camera
-    from raymarchrenderer_tpu.kernels.march import render_fused
-    from raymarchrenderer_tpu.parallel.sharding import (
+    from raymarchrenderer.core.camera import Camera
+    from raymarchrenderer.kernels.march import render_fused
+    from raymarchrenderer.parallel.sharding import (
         render_replicated_params, train_loss_sharded, train_step_sharded)
-    from raymarchrenderer_tpu.render.config import RenderConfig
-    from raymarchrenderer_tpu.scene.builtin import sphere_on_floor
+    from raymarchrenderer.render.config import RenderConfig
+    from raymarchrenderer.scene.builtin import sphere_on_floor
 
-    platform = jax.devices()[0].platform
-    interpret = platform != "tpu"
+    from raymarchrenderer.kernels.route import TRITON, kernel_route
+    platform = jax.devices()[0].device_kind
+    if kernel_route() != TRITON and impl != "oracle":
+        raise SystemExit("TRAIN_IMPL=recorded needs a GPU; pass "
+                         "TRAIN_IMPL=oracle to time the plain XLA path")
     scene = sphere_on_floor()
     params = scene.init_params()
     cfg = RenderConfig(width=size, height=size, max_bounces=bounces,
@@ -65,7 +68,7 @@ def main():
 
     # forward-only fused reference rate (same workload, megakernel)
     fwd = jax.jit(lambda p, c, s: render_fused(
-        scene, p, cfg, c, s, n_samples=spp, interpret=interpret))
+        scene, p, cfg, c, s, n_samples=spp))
     jax.block_until_ready(fwd(params, corners, jnp.uint32(0)))
     t0 = time.perf_counter()
     jax.block_until_ready(fwd(params, corners, jnp.uint32(spp)))
@@ -76,28 +79,25 @@ def main():
 
     spectral = os.environ.get("TRAIN_MODE", "rgb") == "spectral"
     if spectral:
-        # round-5: the spectral train step on the RECORDED forward —
-        # the datapoint behind "train --spectral stops paying per-bounce
-        # marches" (TRAIN_IMPL=oracle/fused time the old per-bounce path)
-        from raymarchrenderer_tpu.parallel.sharding import (
+        # the spectral train step on the RECORDED forward
+        # (TRAIN_IMPL=oracle times the per-bounce XLA path)
+        from raymarchrenderer.parallel.sharding import (
             train_step_spectral_sharded)
-        from raymarchrenderer_tpu.render.spectral_integrator import (
+        from raymarchrenderer.render.spectral_integrator import (
             band_table)
         mats = band_table(scene)
 
         def step(p, s):
             loss, np_, nm = train_step_spectral_sharded(
                 scene, p, mats, cfg, corners, target, mesh, spp=spp,
-                lr=1e-3, march_impl=impl, interpret=interpret,
-                sample0=s * spp)
+                lr=1e-3, march_impl=impl, sample0=s * spp)
             return loss, np_
 
     else:
         def step(p, s):
             return train_step_sharded(scene, p, cfg, corners, target,
                                       mesh, spp=spp, lr=1e-3,
-                                      march_impl=impl,
-                                      interpret=interpret, remat=remat)
+                                      march_impl=impl, remat=remat)
 
     with mesh:
         # pre-place replicated so step 1 compiles with the same input
@@ -117,25 +117,21 @@ def main():
         if not spectral:
             jax.block_until_ready(train_loss_sharded(
                 scene, params, cfg, corners, target, mesh, spp=spp,
-                march_impl=impl, interpret=interpret))
+                march_impl=impl))
             t0 = time.perf_counter()
             jax.block_until_ready(train_loss_sharded(
                 scene, p, cfg, corners, target, mesh, spp=spp,
-                march_impl=impl, interpret=interpret))
+                march_impl=impl))
             loss_dt = time.perf_counter() - t0
     rec_dt = None
     if (impl == "recorded" and not spectral
             and os.environ.get("TRAIN_DECOMP", "0") == "1"):
-        # decomposition (round-5 verdict item 5): time the RECORDING
-        # kernel alone — step = recording + XLA replay(fwd) + backward,
-        # so (loss_dt - rec_dt) is the replay and (dt - loss_dt) the
-        # backward; committed as output/train_profile_r5.json
-        from raymarchrenderer_tpu.kernels.record import trace_record_fused
-        from raymarchrenderer_tpu.render.raygen import pixel_grid
-        px, py = pixel_grid(size, size)
+        # decomposition: time the RECORDING kernel alone — step =
+        # recording + XLA replay(fwd) + backward, so (loss_dt - rec_dt)
+        # is the replay and (dt - loss_dt) the backward
+        from raymarchrenderer.kernels.record import trace_record_fused
         rec = jax.jit(lambda p: trace_record_fused(
-            scene, p, cfg, None, None, px, py, jnp.uint32(0),
-            interpret=interpret, corners=corners, mode="mega",
+            scene, p, cfg, corners, (0, 0), (size, size), jnp.uint32(0),
             n_samples=spp))
         jax.block_until_ready(rec(params))
         t0 = time.perf_counter()
