@@ -90,9 +90,9 @@ def main():
     elif use_env:
         # BENCH_ENV_FILTER=nearest: 1-tap GL_NEAREST lookups.
         # BENCH_ENV_GATHER=mxu (default): the deferred-sky composite's
-        # lookups run as a tent-weight contraction against the
-        # solid-angle-prefiltered 32x64 mip; =exact gathers the
-        # full-res texture (the reference-parity mode).
+        # lookups are bilinear gathers from the solid-angle-prefiltered
+        # 32x64 mip; =exact gathers the full-res texture (the
+        # reference-parity mode).
         scene = builtin.env_demo(
             env_filter=os.environ.get("BENCH_ENV_FILTER", "linear"),
             env_gather=os.environ.get("BENCH_ENV_GATHER", "mxu"))

@@ -183,6 +183,7 @@ def cmd_render(args) -> int:
         mats = band_table(scene)
 
         def spectral_cb(s, state):
+            jax.block_until_ready(state[0])
             if args.checkpoint:
                 save_checkpoint(args.checkpoint, np.asarray(state[0]),
                                 float(state[1]), cfg, scene_digest=digest)
@@ -212,6 +213,7 @@ def cmd_render(args) -> int:
                 samples_per_launch=k, direct_light=args.direct_light,
                 accum=img, n0=float(done))
             done += k
+            jax.block_until_ready(img)
             if args.checkpoint:
                 save_checkpoint(args.checkpoint, np.asarray(img), n, cfg,
                                 scene_digest=digest)
@@ -224,6 +226,7 @@ def cmd_render(args) -> int:
                 save_checkpoint(args.checkpoint, np.asarray(state[0]),
                                 float(state[1]), cfg, scene_digest=digest)
             if (s + 1) % args.chunk == 0:
+                jax.block_until_ready(state[0])
                 el = time.perf_counter() - t0
                 print(f"  {s + 1 - int(n0)}/{spp_left} spp "
                       f"({(s + 1 - n0) / max(el, 1e-9):.2f} spp/s)",
@@ -233,23 +236,30 @@ def cmd_render(args) -> int:
                         direct_light=args.direct_light, accum=accum, n0=n0,
                         callback=cb)
 
+    # the render is done when the device is: dispatch returns long before
+    img = jax.block_until_ready(img)
     dt = time.perf_counter() - t0
     if profile_cm is not None:
         profile_cm.__exit__(None, None, None)
     mpix_spp = cfg.width * cfg.height * (n - n0) / 1e6
-    print(f"done: {n:.0f} spp in {dt:.1f}s "
-          f"({mpix_spp / max(dt, 1e-9):.2f} Mpix*spp/s)")
-    if metrics is not None:
-        metrics.log("render_done", spp=float(n), wall_s=round(dt, 3),
-                    mpix_spp_per_s=round(mpix_spp / max(dt, 1e-9), 4))
-        metrics.close()
-
+    t1 = time.perf_counter()
+    host = np.asarray(img)
+    fetch_s = time.perf_counter() - t1
     out = args.out or os.path.join("output", timestamp_name("png"))
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-    save_image(out, np.asarray(img))
+    t1 = time.perf_counter()
+    save_image(out, host)
+    save_s = time.perf_counter() - t1
+    print(f"done: {n:.0f} spp in {dt:.3f}s "
+          f"({mpix_spp / max(dt, 1e-9):.2f} Mpix*spp/s); "
+          f"fetch {fetch_s:.3f}s, save {save_s:.3f}s")
+    if metrics is not None:
+        metrics.log("render_done", spp=float(n), wall_s=round(dt, 3),
+                    mpix_spp_per_s=round(mpix_spp / max(dt, 1e-9), 4),
+                    fetch_s=round(fetch_s, 4), save_s=round(save_s, 4))
+        metrics.close()
     if args.checkpoint:
-        save_checkpoint(args.checkpoint, np.asarray(img), n, cfg,
-                        scene_digest=digest)
+        save_checkpoint(args.checkpoint, host, n, cfg, scene_digest=digest)
     print(f"saved {out}")
     return 0
 

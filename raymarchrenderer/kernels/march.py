@@ -95,6 +95,26 @@ def pallas_launch(kernel, rows, grid, out_specs, out_shape, interpret):
     )(*rows)
 
 
+class BankRefs:
+    """A block's output refs for the record / deferred-sky banks, as
+    `render.mega` writes them: slot `s` of bank `i` is the (bh, bw) plane
+    `refs[i][s]`, and a record is one masked scatter store of each lane's
+    value at its own (slot, y, x)."""
+
+    def __init__(self, refs):
+        self.refs = refs
+
+    def fill(self, i, slot, value):
+        self.refs[i][slot] = value
+
+    def store(self, i, slot, value, mask):
+        shape = jnp.shape(slot)
+        yy = jax.lax.broadcasted_iota(jnp.int32, shape, 0)
+        xx = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
+        plgpu.store(self.refs[i].at[jnp.where(mask, slot, 0), yy, xx],
+                    value, mask=mask)
+
+
 def _no_env_image(params):
     """The env image never enters a kernel (the composite gathers it in
     XLA): swap it for an empty leaf so nothing is shipped."""
@@ -193,7 +213,7 @@ def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
                 dispersion=cfg.separate_channels,
                 direct_light=direct_light, defer_sky=defer_sky,
                 lazy_miss=lazy_miss, regen_cadence=regen_cadence,
-                bank_refs=bank_refs if defer_sky else None)
+                bank_refs=BankRefs(bank_refs) if defer_sky else None)
             if defer_sky:
                 c = c[0]
             # deferred-sky chunks emit RAW sums: the host divides ONCE

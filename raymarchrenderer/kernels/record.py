@@ -35,7 +35,7 @@ from jax import lax
 from jax.experimental import pallas as pl
 
 from raymarchrenderer.core.vecmath import Vec3
-from raymarchrenderer.kernels.march import (DEFAULT_BH, DEFAULT_BW,
+from raymarchrenderer.kernels.march import (DEFAULT_BH, DEFAULT_BW, BankRefs,
                                             DEFAULT_LAZY_MISS,
                                             DEFAULT_MARCH_UNROLL,
                                             DEFAULT_REGEN_CADENCE,
@@ -127,7 +127,7 @@ def trace_record_fused(scene: Scene, params, cfg: RenderConfig, corners,
                          direct_light=direct_light, record_banks=True,
                          # NEE stays strict (see docstring)
                          lazy_miss=lazy_miss and not nee and not interpret,
-                         bank_refs=bank_refs)
+                         bank_refs=BankRefs(bank_refs))
 
     BS = B * P
     banks = [(BS, jnp.float32), (BS, jnp.int32), (BS, jnp.int32)]
@@ -205,7 +205,7 @@ def trace_record_fused_spectral(scene: Scene, params, mats,
                             march_unroll=march_unroll,
                             regen_cadence=cadence, record_banks=True,
                             lazy_miss=lazy_miss and not interpret,
-                            bank_refs=bank_refs)
+                            bank_refs=BankRefs(bank_refs))
 
     BS = B * S
     outs = _record_launch(kernel, rows, bh, bw, hp, wp,

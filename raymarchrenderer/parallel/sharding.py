@@ -228,6 +228,26 @@ def _render_sharded_spectral_fn(scene: Scene, cfg: RenderConfig, mesh: Mesh,
                       check_vma=False))
 
 
+def _l2_loss_and_grads(local_render, fit, target, spp: int, norm):
+    """Pixel-L2 loss of the merged image and its gradient w.r.t. `fit`,
+    inside a ('tile', 'spp') shard_map; both come back replicated.
+
+    Only the card's own render is differentiated (`jax.vjp`); the loss's
+    cotangent for it, 2·(img − target) / (norm·spp) on the card's rows, is
+    formed from the merged image by hand.  Differentiating through the
+    merges instead would be wrong here: with `check_vma=False` the
+    transpose of a psum is a psum, so every card's contribution would be
+    counted once per mesh member.  Each card's gradient covers its own
+    rows × its own samples, so the global gradient is one psum over both
+    axes."""
+    acc, vjp = jax.vjp(local_render, fit)
+    img = lax.psum(acc, "spp") / jnp.float32(spp)
+    resid = img - target
+    loss = lax.psum(jnp.sum(resid ** 2), "tile") / norm
+    (grads,) = vjp(resid * (2.0 / (norm * jnp.float32(spp))))
+    return loss, lax.psum(grads, ("tile", "spp"))
+
+
 def train_step_sharded(scene: Scene, params, cfg: RenderConfig, corners,
                        target, mesh: Mesh, spp: int, lr: float = 1e-2,
                        direct_light: bool = False,
@@ -295,21 +315,9 @@ def _train_step_fn(scene: Scene, cfg: RenderConfig, mesh: Mesh, spp: int,
             local_render = jax.checkpoint(local_render,
                                           policy=march_save_policy())
 
-        def loss_fn(params):
-            s0 = (si * spp_per).astype(jnp.uint32)
-            acc = local_render(params, s0)
-            img = lax.psum(acc, "spp") / jnp.float32(spp)
-            local = jnp.sum((img - target) ** 2)
-            # identical loss on every spp member; psum over tiles gives the
-            # global loss (divide by n_spp to undo the replication)
-            return lax.psum(local, "tile") / norm
-
-        # Per-device grads are disjoint contributions (each device's compute
-        # path covers its own rows × its own samples), so the true global
-        # gradient is one psum over BOTH mesh axes — the overlapped grad
-        # all-reduce of the north star.
-        loss, grads = jax.value_and_grad(loss_fn)(params)
-        grads = lax.psum(grads, ("tile", "spp"))
+        s0 = (si * spp_per).astype(jnp.uint32)
+        loss, grads = _l2_loss_and_grads(
+            lambda p: local_render(p, s0), params, target, spp, norm)
         new_params = jax.tree.map(lambda p, g: p - lr * g, params, grads)
         return loss, new_params
 
@@ -386,7 +394,7 @@ def _train_step_spectral_fn(scene: Scene, cfg: RenderConfig, mesh: Mesh,
         si = lax.axis_index("spp")
         origin = jnp.stack([jnp.int32(0), (ti * rows_per).astype(jnp.int32)])
 
-        def loss_fn(fit):
+        def local_render(fit):
             params_f, bands_f = fit
             minw, maxw, power = _clamp_bands(*bands_f)
             mats = SpectralMaterials(minw, maxw, power, kind)
@@ -398,12 +406,10 @@ def _train_step_spectral_fn(scene: Scene, cfg: RenderConfig, mesh: Mesh,
                 (rows_per, cfg.width), s0, spp_per, differentiable=True,
                 march_impl=march_impl, soft_edge=soft_edge,
                 interpret=interpret)
-            img = lax.psum(acc.stack(-1), "spp") / jnp.float32(spp)
-            local = jnp.sum((img - target) ** 2)
-            return lax.psum(local, "tile") / norm
+            return acc.stack(-1)
 
-        loss, grads = jax.value_and_grad(loss_fn)((params, bands))
-        grads = lax.psum(grads, ("tile", "spp"))
+        loss, grads = _l2_loss_and_grads(local_render, (params, bands),
+                                         target, spp, norm)
         gp, (g_min, g_max, g_pow) = grads
         new_params = jax.tree.map(lambda p, g: p - lr * g, params, gp)
         # sign update for the nm-scaled rows, smaller sign step for the

@@ -47,7 +47,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax import lax
-from jax.experimental.pallas import triton as plgpu
 
 from raymarchrenderer.core.rng import RNGStream
 from raymarchrenderer.core.sampling import (uniform_sphere,
@@ -87,15 +86,15 @@ _WAIT_MISS = -1
 def _init_banks(specs, shape, refs):
     """Banks of per-(slot, pixel) records: `specs` holds one
     (depth, init value, dtype) per bank.  Plain jnp carries them as stacked
-    (depth, h, w) loop carries.  In a kernel (`refs` = the block's output
-    refs) nothing is carried: every slot the block owns is filled with its
-    init value here (Pallas outputs start uninitialised) and later records
-    are stored straight into the refs."""
+    (depth, h, w) loop carries.  In a kernel (`refs` = the block's bank
+    writer, `kernels.march.BankRefs`) nothing is carried: every slot the
+    block owns is filled with its init value here (kernel outputs start
+    uninitialised) and later records are stored straight into them."""
     if refs is None:
         return tuple(jnp.full((k,) + shape, v, dt) for k, v, dt in specs)
-    for ref, (k, v, dt) in zip(refs, specs):
-        def fill(s, c, ref=ref, v=v, dt=dt):
-            ref[s] = jnp.full(shape, v, dt)
+    for i, (k, v, dt) in enumerate(specs):
+        def fill(s, c, i=i, v=v, dt=dt):
+            refs.fill(i, s, jnp.full(shape, v, dt))
             return c
         lax.fori_loop(0, k, fill, 0)
     return ()
@@ -105,7 +104,7 @@ def _write_banks(rec, refs, which, slot, mask, values):
     """Record `values[i]` in bank `which[i]` at (slot, y, x) where `mask`.
 
     Carried banks take a one-hot select over the slot axis; in a kernel
-    each record is ONE masked scatter store into the output ref, so bank
+    each record is ONE masked store through the bank writer, so bank
     depth costs no registers and needs no power-of-two size."""
     if refs is None:
         kk = lax.broadcasted_iota(jnp.int32, rec[which[0]].shape, 0)
@@ -114,12 +113,8 @@ def _write_banks(rec, refs, which, slot, mask, values):
         for w, v in zip(which, values):
             rec[w] = jnp.where(sel, v[None], rec[w])
         return tuple(rec)
-    shape = jnp.shape(slot)
-    yy = lax.broadcasted_iota(jnp.int32, shape, 0)
-    xx = lax.broadcasted_iota(jnp.int32, shape, 1)
-    slot = jnp.where(mask, slot, 0)
     for w, v in zip(which, values):
-        plgpu.store(refs[w].at[slot, yy, xx], v, mask=mask)
+        refs.store(w, slot, v, mask)
     return rec
 
 
@@ -158,7 +153,7 @@ class _MegaState(NamedTuple):
     li: jax.Array = None       # int32 current light index
     sh_store: tuple = ()       # ((d, tmax, contrib), ...) for lights 1..
     # banks carried by plain jnp (empty inside a kernel, which stores them
-    # into its output refs — `_write_banks`).  record_banks: (t (B·S, h, w)
+    # through its bank writer — `_write_banks`).  record_banks: (t (B·S, h, w)
     # f32, mid i32, hit i32[, sd (B·S·L, h, w) f32]), the per-(bounce,
     # sample) march residuals the differentiable replay consumes
     # (`kernels.record.trace_record_fused`).  defer_sky: (thr r, g, b
@@ -207,9 +202,10 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     lazy_miss validation below; NEE recording is forced strict by the
     caller (`kernels.record._record_mega`).
 
-    `bank_refs`: inside a kernel, the output refs the record / deferred-sky
-    banks are stored into (see `_write_banks`); the banks are then not
-    returned.  Plain jnp carries them and returns them."""
+    `bank_refs`: inside a kernel, the writer the record / deferred-sky
+    banks are stored through (`kernels.march.BankRefs`, see
+    `_write_banks`); the banks are then not returned.  Plain jnp carries
+    them and returns them."""
     shape = jnp.shape(px)
     e = eye_vec(corners)
     eye = Vec3(jnp.broadcast_to(e.x, shape).astype(jnp.float32),

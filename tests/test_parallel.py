@@ -46,6 +46,92 @@ def test_sharded_matches_unsharded(scene_and_params, tile, spp_axis):
     np.testing.assert_allclose(gather_image(img), ref, rtol=1e-5, atol=1e-6)
 
 
+def _flat(tree):
+    return np.concatenate([np.ravel(x) for x in jax.tree.leaves(tree)])
+
+
+@pytest.mark.parametrize("tile,spp_axis", [(1, 1), (4, 1), (1, 4), (2, 2)])
+def test_train_step_update_is_unsharded_grad(scene_and_params, tile,
+                                             spp_axis):
+    """One sharded SGD step at lr 1 moves the parameters by exactly the
+    gradient of the unsharded loss, whatever the mesh: each card's
+    contribution is counted once."""
+    from raymarchrenderer.parallel.sharding import train_step_sharded
+    from raymarchrenderer.render.integrator import render_patch_spp
+    scene, params = scene_and_params
+    corners, spp = _corners(), 4
+    target = jnp.full((16, 16, 3), 0.1, jnp.float32)
+
+    def loss_fn(p):
+        c = render_patch_spp(scene, p, CFG, corners, (0, 0), (16, 16),
+                             jnp.uint32(0), spp, differentiable=True)
+        return jnp.mean((c.stack(-1) / spp - target) ** 2)
+
+    want_loss, want = jax.value_and_grad(loss_fn)(params)
+    mesh = make_mesh(ShardConfig(tile=tile, spp=spp_axis))
+    with mesh:
+        loss, new = train_step_sharded(scene, params, CFG, corners, target,
+                                       mesh, spp=spp, lr=1.0)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
+    np.testing.assert_allclose(_flat(params) - _flat(new), _flat(want),
+                               rtol=1e-4, atol=1e-7)
+
+
+@pytest.mark.parametrize("tile,spp_axis", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_l2_loss_and_grads_counts_each_card_once(tile, spp_axis):
+    """The shared loss/gradient rule of both train steps, on a stand-in
+    render (card (t, s) draws (s + 1)·p over its rows): loss and gradient
+    equal the unsharded ones."""
+    from jax.sharding import PartitionSpec as P
+
+    from raymarchrenderer.parallel.sharding import _l2_loss_and_grads
+    h, w = 8, 4
+    norm = jnp.float32(h * w * 3)
+    target = jnp.asarray(np.random.RandomState(0).rand(h, w, 3),
+                         jnp.float32)
+    p = jnp.asarray([0.3, -0.7, 1.1], jnp.float32)
+
+    def shard_fn(p, target):
+        si = jax.lax.axis_index("spp")
+        render = lambda p: (jnp.broadcast_to(p, (h // tile, w, 3))  # noqa
+                            * (si + 1).astype(jnp.float32))
+        return _l2_loss_and_grads(render, p, target, spp_axis, norm)
+
+    mesh = make_mesh(ShardConfig(tile, spp_axis))
+    loss, grad = jax.jit(jax.shard_map(
+        shard_fn, mesh=mesh, in_specs=(P(), P("tile", None, None)),
+        out_specs=(P(), P()), check_vma=False))(p, target)
+    mean_scale = (spp_axis + 1) / 2.0
+    want_loss, want = jax.value_and_grad(
+        lambda p: jnp.sum((p * mean_scale - target) ** 2) / norm)(p)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(grad), np.asarray(want),
+                               rtol=1e-5)
+
+
+def test_spectral_train_step_independent_of_mesh():
+    """The spectral step on a 2×2 mesh gives the one-card loss, parameters
+    and band rows."""
+    from raymarchrenderer.parallel.sharding import (
+        train_step_spectral_sharded)
+    from raymarchrenderer.render.spectral_integrator import spectral_demo
+    scene, params, mats = spectral_demo()
+    target = jnp.full((16, 16, 3), 0.1, jnp.float32)
+    out = {}
+    for shape in ((1, 1), (2, 2)):
+        mesh = make_mesh(ShardConfig(*shape))
+        with mesh:
+            loss, new, fit = train_step_spectral_sharded(
+                scene, params, mats, CFG, _corners(), target, mesh, spp=4,
+                lr=1.0)
+        out[shape] = (float(loss), _flat(new),
+                      _flat((fit.min_wave, fit.max_wave, fit.power)))
+    (l1, p1, b1), (l4, p4, b4) = out[(1, 1)], out[(2, 2)]
+    np.testing.assert_allclose(l4, l1, rtol=1e-6)
+    np.testing.assert_allclose(p4, p1, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(b4, b1)
+
+
 def test_auto_shard_covers_devices():
     sc = auto_shard(8)
     assert sc.total() == 8
